@@ -1,0 +1,89 @@
+"""Conversion between the JAX package's objects and the port's.
+
+The JAX package's `State` and `PairLJCut` arrive here as plain dicts of
+numpy arrays plus their static fields (field names as in the JAX
+dataclasses; the box as a nested dict), so this module imports neither
+jax nor the JAX package. The tests use it to feed both packages the same
+state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.box import Box
+from .core.state import State
+from .models.pair_lj import PairLJCut
+
+_STATE_ARRAYS = ("x", "v", "f", "type", "tag", "image", "q", "molecule",
+                 "mass", "mask", "virial")
+_PAIR_ARRAYS = ("lj1", "lj2", "lj3", "lj4", "cutsq", "offset")
+
+
+def dataclass_to_arrays(obj) -> dict:
+    """{field: numpy array or static value} of a dataclass instance, such
+    as the JAX package's State or PairLJCut. Nested dataclasses (the box)
+    become nested dicts; array fields go through np.asarray."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = dataclass_to_arrays(v)
+        elif v is None or isinstance(v, (bool, int, float, str, tuple,
+                                         dict)):
+            out[f.name] = v
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _tensor(a, device):
+    return None if a is None else torch.from_numpy(
+        np.array(a, copy=True)).to(device)
+
+
+def state_from_arrays(d: dict, device="cpu") -> State:
+    """Port State from {field: numpy array or static value}; `d["box"]`
+    is {"lo", "hi", "tilt", "periodic", "triclinic"}."""
+    b = d["box"]
+    if b.get("triclinic", False):
+        raise NotImplementedError("triclinic boxes are not ported yet")
+    box = Box(lo=_tensor(b["lo"], device), hi=_tensor(b["hi"], device),
+              tilt=_tensor(b["tilt"], device),
+              periodic=tuple(bool(p) for p in b["periodic"]))
+    return State(
+        **{k: _tensor(d.get(k), device) for k in _STATE_ARRAYS},
+        box=box, nlocal=int(d["nlocal"]), ntimestep=int(d["ntimestep"]),
+        aux={}, units_name=d["units_name"], dimension=int(d["dimension"]),
+        owned_all=bool(d["owned_all"]),
+    )
+
+
+def state_to_arrays(state: State) -> dict:
+    """Inverse of state_from_arrays (aux is not carried)."""
+    host = lambda a: None if a is None else a.detach().cpu().numpy()  # noqa
+    d = {k: host(getattr(state, k)) for k in _STATE_ARRAYS}
+    d["box"] = {"lo": host(state.box.lo), "hi": host(state.box.hi),
+                "tilt": host(state.box.tilt),
+                "periodic": state.box.periodic,
+                "triclinic": state.box.triclinic}
+    d.update(nlocal=state.nlocal, ntimestep=state.ntimestep,
+             units_name=state.units_name, dimension=state.dimension,
+             owned_all=state.owned_all)
+    return d
+
+
+def pair_from_arrays(d: dict, device="cpu") -> PairLJCut:
+    """Port PairLJCut from {table: numpy array, "ntypes", "cut_global_max"}."""
+    return PairLJCut(**{k: _tensor(d[k], device) for k in _PAIR_ARRAYS},
+                     ntypes=int(d["ntypes"]),
+                     cut_global_max=float(d["cut_global_max"]))
+
+
+def pair_to_arrays(pair: PairLJCut) -> dict:
+    d = {k: getattr(pair, k).detach().cpu().numpy() for k in _PAIR_ARRAYS}
+    d.update(ntypes=pair.ntypes, cut_global_max=pair.cut_global_max)
+    return d

@@ -1,0 +1,40 @@
+"""ForceField: the composition of force contributions (ref: src/force.h).
+
+Port of `lammps_kokkos_port_tpu/models/forcefield.py`, pair-only: bonded
+styles, kspace and special bonds are not ported yet. `compute` returns
+(f, epair, emol, virial) like the JAX ForceField.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.state import State
+
+
+@dataclasses.dataclass(frozen=True)
+class ForceField:
+    pair: object
+
+    def max_cutoff(self) -> float:
+        return self.pair.max_cutoff()
+
+    def compute(self, state: State, nl, eflag: bool, vflag: bool):
+        """Returns (f, epair, emol, virial6); epair/emol are None unless
+        eflag, virial is None unless vflag."""
+        from ..ops import sortedforce
+
+        if not isinstance(nl, sortedforce.SortedCells):
+            raise NotImplementedError(
+                f"list type {type(nl).__name__} is not ported; only the "
+                "sorted cell-major layout is")
+        f, pe, vir = sortedforce.compute(self.pair, state, nl, eflag, vflag)
+        emol = (torch.zeros((), dtype=state.dtype, device=state.device)
+                if eflag else None)
+        return f, pe, emol, vir
+
+
+def from_pair(pair) -> ForceField:
+    return ForceField(pair=pair)

@@ -1,0 +1,283 @@
+"""Cell-major (sorted) state mode: the state itself is stored in cell order.
+
+Port of `lammps_kokkos_port_tpu/ops/sortedforce.py` (the analog of the
+reference's spatial atom sort, src/atom.cpp:2246 Atom::sort, made the
+layout itself):
+
+  - state capacity = ncells * cell_cap; every cell owns a fixed slab of
+    rows, padding rows have mask 0;
+  - at every neighbor rebuild the per-atom arrays are permuted into the new
+    cell assignment (`rebuild_state`, once per `every` steps);
+  - the force pass reads positions in grid layout and writes forces in the
+    same layout through the CUDA cell kernel (ops/pair_kernels), so the hot
+    loop has no gathers or scatters at all.
+
+JAX's clamped gathers and dropping scatters become explicit masks here:
+PyTorch raises on out-of-range indices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.state import State
+from . import neighbor as nbr
+
+# padding rows carry DISTINCT position sentinels (PAD_POS + row*PAD_STEP on
+# the space diagonal): pad-real pairs fail the cutoff by distance, and
+# pad-pad pairs do too (rows differ by >= PAD_STEP in every component), so
+# the force kernel needs no validity lanes (f32 note: ulp(1e8) = 8, so steps
+# of 16 stay exactly representable across multi-million-row capacities)
+PAD_POS = 1.0e8
+PAD_STEP = 16.0
+
+
+def _pad_x(cap: int, dtype, device) -> torch.Tensor:
+    """[cap] distinct diagonal pad sentinel per row."""
+    return (torch.tensor(PAD_POS, dtype=dtype, device=device)
+            + torch.arange(cap, dtype=dtype, device=device) * PAD_STEP)
+
+
+@dataclasses.dataclass(frozen=True)
+class SortedCells:
+    """Rebuild bookkeeping; the cell buckets are the state layout itself.
+
+    `ago` (steps since the last rebuild) and `nbuilds` are host ints: with
+    the cadence-only rebuild policy the host knows them without asking the
+    GPU. `overflow` is a sticky 0-d bool tensor on the device, read by the
+    host once per segment. (The JAX version also keeps `xhold` and
+    `ndanger` for the distance-checked policy, which is not ported.)
+    """
+
+    ago: int
+    nbuilds: int
+    overflow: torch.Tensor
+    params: nbr.NeighborParams
+
+
+def expand_state(state: State, p: nbr.NeighborParams) -> State:
+    """Host-side: compact the valid rows and re-pad to capacity
+    ncells*cell_cap (rows beyond the atoms are mask-0 padding). Accepts any
+    incoming layout, including an already-sorted one of another
+    capacity."""
+    cap2 = p.total_cells * p.cell_cap
+    cap = state.capacity
+    rows = np.flatnonzero(state.valid_mask.cpu().numpy())
+    if len(rows) > cap2:
+        raise ValueError(
+            f"sorted capacity {cap2} cannot hold {len(rows)} atoms")
+
+    def repack(a, fill=0):
+        if a is None or a.ndim == 0 or a.shape[0] != cap:
+            return a
+        host = a.cpu().numpy()
+        out = np.full((cap2,) + host.shape[1:], fill, dtype=host.dtype)
+        out[:len(rows)] = host[rows]
+        return torch.from_numpy(out).to(state.device)
+
+    xr = repack(state.x, fill=PAD_POS).cpu().numpy()
+    pr = np.arange(len(rows), cap2)
+    xr[len(rows):] = (PAD_POS + pr[:, None] * PAD_STEP)
+    return state.replace(
+        x=torch.from_numpy(xr).to(state.device), v=repack(state.v),
+        f=repack(state.f), type=repack(state.type), tag=repack(state.tag),
+        image=repack(state.image), q=repack(state.q),
+        molecule=repack(state.molecule), mask=repack(state.mask),
+        owned_all=True,  # rows scatter across cells; every valid row owned
+    )
+
+
+def _local_perm(state: State, p: nbr.NeighborParams):
+    """Sort-free re-binning for an ALREADY cell-major state.
+
+    Between rebuilds atoms move at most ~skin, i.e. at most one cell. Each
+    row's old cell is implied by its position in the layout (row //
+    cell_cap), so the new slot assignment reduces to 27 "streams" (one per
+    cell offset) with per-cell exclusive sums — no sort. If an atom moved
+    more than one cell, or a cell overflows, the sticky overflow flag makes
+    the host redo the segment through the full-sort `build`.
+
+    Returns (newpos [cap] int64 forward destinations, == cap for padding
+    rows, overflow 0-d bool tensor).
+    """
+    cap = state.capacity
+    cc = p.cell_cap
+    ntot = p.total_cells
+    nx, ny, nz = p.ncells
+    dev = state.device
+    dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+
+    # new cell coords from positions (same mapping as nbr._bin_atoms)
+    lamda = state.box.to_lamda(state.x)
+    frac = lamda - torch.floor(lamda)
+    frac = torch.clamp(frac, 0.0, 1.0 - 1e-7)
+    c_new = torch.floor(frac * dims.to(frac.dtype)).to(torch.int32)
+    c_new = torch.minimum(torch.clamp(c_new, min=0), dims - 1)  # [cap, 3]
+
+    # old cell coords are static per row
+    row = torch.arange(cap, dtype=torch.int32, device=dev)
+    oldcell = row // cc
+    ox = oldcell // (ny * nz)
+    rem = oldcell - ox * (ny * nz)
+    c_old = torch.stack([ox, rem // nz, rem - (rem // nz) * nz], dim=1)
+
+    d = c_new - c_old
+    half = dims // 2
+    d = torch.where(d > half, d - dims, torch.where(d < -half, d + dims, d))
+    valid = state.valid_mask
+    moved_far = ((d.abs() > 1) & valid[:, None]).any()
+
+    o = (d[:, 0] + 1) * 9 + (d[:, 1] + 1) * 3 + (d[:, 2] + 1)  # 0..26
+    o = torch.clamp(o, 0, 26)
+
+    # rank of each slot among same-(cell, stream) slots, and per-(cell,
+    # stream) counts (integer sums in int32, as the JAX version does)
+    o_rs = o.reshape(ntot, cc)
+    v_rs = valid.reshape(ntot, cc)
+    lane = torch.arange(cc, dtype=torch.int32, device=dev)
+    ltri = lane[:, None] > lane[None, :]
+    oeq = ((o_rs[:, :, None] == o_rs[:, None, :])
+           & ltri[None, :, :] & v_rs[:, None, :])
+    rank = oeq.sum(dim=-1, dtype=torch.int32).reshape(cap)
+    streams = torch.arange(27, dtype=torch.int32, device=dev)
+    oh = (o_rs[:, :, None] == streams[None, None, :]) & v_rs[:, :, None]
+    counts = oh.sum(dim=1, dtype=torch.int32)  # [ntot, 27]
+
+    # arrivals at dest cell from stream k originate at dest - offset_k
+    counts3 = counts.reshape(nx, ny, nz, 27)
+    offs = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+            for dz in (-1, 0, 1)]
+    arr = torch.stack(
+        [torch.roll(counts3[..., k], offs[k], dims=(0, 1, 2))
+         for k in range(27)], dim=-1)  # [nx, ny, nz, 27]
+    cell_overflow = arr.sum(dim=-1).max() > cc
+    base = (torch.cumsum(arr, dim=-1, dtype=torch.int32) - arr).reshape(-1)
+
+    dcell = (c_new[:, 0] * ny + c_new[:, 1]) * nz + c_new[:, 2]
+    slot = base[(dcell * 27 + o).long()] + rank
+    newpos = dcell.long() * cc + torch.clamp(slot, max=cc - 1)
+    return torch.where(valid, newpos, cap), moved_far | cell_overflow
+
+
+def _apply_perm(state: State, newpos, overflow):
+    """Move every row to its destination slot (`newpos` [cap]; entries
+    >= cap are dropped). The forward map is inverted with one scatter into
+    `perm`, then each per-atom array is gathered once. `f` is not moved:
+    every rebuild is followed by a force evaluation."""
+    cap = state.capacity
+    dev = state.device
+    keep = newpos < cap
+    perm = torch.full((cap,), cap, dtype=torch.int64, device=dev)
+    perm[newpos[keep]] = torch.arange(cap, device=dev)[keep]
+    valid = perm < cap
+    safe = torch.clamp(perm, max=cap - 1)
+
+    def g(a):
+        if a is None:
+            return None
+        sel = valid.reshape([-1] + [1] * (a.ndim - 1))
+        return torch.where(sel, a[safe], torch.zeros((), dtype=a.dtype,
+                                                      device=dev))
+
+    x = torch.where(valid[:, None], state.x[safe],
+                    _pad_x(cap, state.dtype, dev)[:, None])
+    state = state.replace(
+        x=x, v=g(state.v), q=g(state.q), type=g(state.type),
+        tag=g(state.tag), image=g(state.image), molecule=g(state.molecule),
+        mask=g(state.mask),
+    )
+    return state, overflow
+
+
+def _permute(state: State, p: nbr.NeighborParams):
+    """Permute all per-atom arrays into cell-major order.
+    Returns (state_sorted, cell_overflow)."""
+    cap = state.capacity  # == ntot * cc
+    dev = state.device
+    _, buckets, overflow = nbr._bin_atoms(state, p)
+    perm = buckets[:p.total_cells].reshape(-1).long()  # == cap -> padding
+    valid = perm < cap
+    safe = torch.clamp(perm, max=cap - 1)
+
+    def g(a):
+        if a is None:
+            return None
+        sel = valid.reshape([-1] + [1] * (a.ndim - 1))
+        return torch.where(sel, a[safe], torch.zeros((), dtype=a.dtype,
+                                                      device=dev))
+
+    x = torch.where(valid[:, None], state.x[safe],
+                    _pad_x(cap, state.dtype, dev)[:, None])
+    state = state.replace(
+        x=x, v=g(state.v), f=g(state.f), type=g(state.type),
+        tag=g(state.tag), image=g(state.image), q=g(state.q),
+        molecule=g(state.molecule), mask=g(state.mask),
+    )
+    return state, overflow
+
+
+def build(state: State, p: nbr.NeighborParams):
+    """Sort the (already expanded) state; returns (state, SortedCells)."""
+    state, overflow = _permute(state, p)
+    return state, SortedCells(ago=0, nbuilds=1, overflow=overflow, params=p)
+
+
+def rebuild_state(state: State, old: SortedCells):
+    """In-step rebuild: the sort-free local re-binning (atoms move <= one
+    cell between rebuilds; violations raise the sticky overflow flag and
+    the host replays the segment through the full-sort `build`)."""
+    newpos, overflow = _local_perm(state, old.params)
+    state, overflow = _apply_perm(state, newpos, overflow)
+    return state, SortedCells(ago=0, nbuilds=old.nbuilds + 1,
+                              overflow=old.overflow | overflow,
+                              params=old.params)
+
+
+def tick(cl: SortedCells) -> SortedCells:
+    return dataclasses.replace(cl, ago=cl.ago + 1)
+
+
+def planar(a: torch.Tensor) -> torch.Tensor:
+    """[cap, 3] rows -> a fresh contiguous [3, cap] tensor, the kernel's
+    layout (each component is a [ncells, cell_cap] grid). Always a copy:
+    the fused segment updates it in place."""
+    return a.t().clone(memory_format=torch.contiguous_format)
+
+
+def compute(style, state: State, cl: SortedCells, eflag: bool, vflag: bool):
+    """(f, pe, virial) in the sorted layout. The force-only pass goes
+    through the CUDA cell kernel; energy/virial passes (thermo steps) take
+    the plain PyTorch grid path (ops/gridforce), as the JAX package took
+    its XLA path there."""
+    p = cl.params
+    cap = state.capacity
+    ntot = p.total_cells
+    cc = p.cell_cap
+
+    if not eflag and not vflag:
+        key = style.kernel_key()
+        if key is None:
+            raise NotImplementedError(
+                "sorted force pass needs a single-type lj/cut style")
+        from .pair_kernels import lj_cell_force
+
+        g = planar(state.x).reshape(3, ntot, cc)
+        f = lj_cell_force(key, p.ncells, g[0], g[1], g[2],
+                          state.box.prd.to(state.dtype))
+        return f.reshape(3, cap).t().contiguous(), None, None
+
+    # energy/virial evaluations: the grid path with the identity buckets
+    # the sorted layout implies
+    from . import gridforce
+
+    rows = torch.arange(cap, dtype=torch.int32,
+                        device=state.device).reshape(ntot, cc)
+    buckets = torch.where(state.mask.reshape(ntot, cc) != 0, rows, cap)
+    buckets = torch.cat(
+        [buckets, torch.full((1, cc), cap, dtype=torch.int32,
+                             device=state.device)], dim=0)
+    gc = gridforce.GridCells(buckets=buckets, params=p)
+    return gridforce.compute(style, state, gc, eflag, vflag)
