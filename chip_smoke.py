@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's LJ-melt main path (lammps_kokkos_port_tpu_torch) through
-the entry points a user calls, and checks it on the card:
+Drives the port's main paths (lammps_kokkos_port_tpu_torch) through the
+entry points a user calls, the LJ melt (bench/in.lj) and the EAM deck
+(bench/in.eam, on the synthetic Sutton-Chen stand-in for Cu_u3.eam, which
+is not in the repository), and checks them on the card:
 
-  1. device: the card's name and power limit (nvidia-smi); build the CUDA
-     pair-force kernel from csrc/ with nvcc;
-  2. the kernel against its plain PyTorch version on the card, at the main
-     path's grids (32k-atom deck and 1M-atom deck), f32 and f64, with
+  1. device: the card's name and power limit (nvidia-smi); build every
+     CUDA kernel from csrc/ with nvcc, one process per source, all at once;
+  2. the lj kernel against its plain PyTorch version on the card, at the
+     main path's grids (32k-atom deck and 1M-atom deck), f32 and f64, with
      positions jittered by a seeded +-0.05 so forces are not lattice zeros;
      max abs error and median CUDA-event times of both;
   3. golden step 0: examples/melt in f64 against the reference's log;
-  4. the main path: the 32k-atom bench/in.lj melt in f32, setup() +
+  4. the LJ main path: the 32k-atom bench/in.lj melt in f32, setup() +
      run(1000, thermo_every=100), with the kernel's launch count over that
      run, energy drift and the slope-timed step rate;
-  5. the 1M-atom deck (cells=63), f32, 200 steps, same checks.
+  5. the 1M-atom deck (cells=63), f32, 200 steps, same checks;
+  6. the two EAM kernels against their plain versions at the eam-32k grid,
+     f32 and f64, positions jittered by a seeded +-0.08 A;
+  7. the EAM slice on the card against the same slice on the CPU (plain
+     versions), cells 6, f64, 10 steps;
+  8. the EAM main path: the 32k-atom bench/in.eam deck in f32, setup() +
+     run(200, thermo_every=50) (every 1 delay 5 check yes), each EAM
+     kernel launched once per force step, nbuilds > 1, energy drift, the
+     slope-timed step rate, and a torch.profiler split of one segment.
 
 Every failed check raises (non-zero exit, no result line). The last two
 lines are the kernel table and the result, one JSON object each.
@@ -24,10 +34,14 @@ Usage, from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,8 +50,17 @@ KERNEL_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_cell_force.cu"
 REPLACES = "lammps_kokkos_port_tpu/ops/pallas_pair.py:331"
 ALSO_REPLACES = ["lammps_kokkos_port_tpu/ops/pallas_pair.py:645",
                  "lammps_kokkos_port_tpu/ops/pallas_pair.py:799"]
+EAM_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/eam_cell.cu"
+EAM_REPLACES = {  # K4, K5
+    "eam_cell_rho": "lammps_kokkos_port_tpu/ops/pallas_eam.py:200",
+    "eam_cell_force": "lammps_kokkos_port_tpu/ops/pallas_eam.py:219",
+}
 SEED = 87287
 T_INIT = 1.44
+EAM_STEPS = 200
+# |etotal drift| per atom over EAM_STEPS, eV: a sanity bound, not a physics
+# claim (the reference's own in.eam log drifts 6.7e-4 eV/atom per 100 steps)
+EAM_DRIFT_BOUND = 0.01
 
 
 def log(msg: str) -> None:
@@ -108,10 +131,9 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
-def check_run(sim, rows, label: str) -> None:
-    """Finite thermo (run() already raises otherwise), clear overflow."""
-    import math
-
+def check_run(sim, rows, label: str, bound: float = 0.02) -> None:
+    """Finite thermo (run() already raises otherwise), clear overflow, and
+    |etotal drift| per atom under `bound`."""
     for r in rows:
         if not all(math.isfinite(v) for v in r.values()
                    if isinstance(v, float)):
@@ -119,21 +141,24 @@ def check_run(sim, rows, label: str) -> None:
     if bool(sim.nl.overflow):
         raise RuntimeError(f"{label}: capacity overflow flag set")
     drift = rows[-1]["etotal"] - rows[0]["etotal"]
+    if not sim.units.norm_default:  # metal units: thermo is not per atom
+        drift /= sim.state.nlocal
     log(f"[{label}] etotal step {rows[0]['step']} {rows[0]['etotal']:.7f} "
         f"-> step {rows[-1]['step']} {rows[-1]['etotal']:.7f} "
         f"(drift {drift:.3e} per atom), temp {rows[-1]['temp']:.6f}, "
         f"press {rows[-1]['press']:.6f}")
     # a sanity bound, not a physics claim
-    if abs(drift) >= 0.02:
-        raise RuntimeError(f"{label}: |etotal drift| {abs(drift)} >= 0.02")
+    if abs(drift) >= bound:
+        raise RuntimeError(f"{label}: |etotal drift| {abs(drift)} per atom "
+                           f">= {bound}")
 
 
-def step_rate(sim, k1: int, label: str, reps: int = 5) -> None:
+def step_rate(sim, k1: int, label: str, reps: int = 5) -> float:
     """Steady-state ms/step from two segment lengths (k1, 3*k1), so the
     fixed per-segment cost cancels (as bench.py does). The two lengths run
     in turns, `reps` times each, from the same state; the slope is taken
     between their median times (host-clock times of a host-bound loop
-    spread more than device times)."""
+    spread more than device times). Returns seconds per step."""
     import torch
 
     runner = sim._get_segment_runner()
@@ -160,7 +185,169 @@ def step_rate(sim, k1: int, label: str, reps: int = 5) -> None:
         f"{rate:.6g} atom-steps/s (slope of medians over {reps} runs of "
         f"{k1} and {3 * k1} steps: {t1:.4f} s, {t2:.4f} s; all "
         f"{[round(t, 4) for t in t1s]} / {[round(t, 4) for t in t2s]})")
+    return per_step
 
+
+def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
+    """Phase 6 on one dtype: both EAM sweeps against their plain versions
+    on the same inputs (the force sweep takes the fp channel computed from
+    the plain rho). Returns {kernel name: numbers} for the kernel line."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import eam_kernels as ek
+    from lammps_kokkos_port_tpu_torch.ops.eamdense import embedding_fp
+
+    st, p = sim.state, sim.nl.params
+    gen = torch.Generator(device=st.device).manual_seed(SEED)
+    jitter = (torch.rand(st.x.shape, generator=gen, device=st.device,
+                         dtype=torch.float64) - 0.5) * 0.16
+    x = torch.where(st.valid_mask[:, None], st.x.double() + jitter,
+                    st.x.double()).to(dtype)
+    g = x.t().contiguous().reshape(3, p.total_cells, p.cell_cap)
+    prd = st.box.prd.to(dtype)
+    tabs = sim.pair_style.poly_tables
+    cutsq = float(sim.pair_style.cutmax) ** 2
+    rtab, ftab = ek.rho_tab(tabs, cutsq), ek.force_tab(tabs, cutsq)
+    rho_args = (rtab, p.ncells, g[0], g[1], g[2], prd)
+    rho_ref = ek.eam_cell_rho_reference(*rho_args)
+    fp = embedding_fp(tabs, rho_ref.reshape(-1), st.valid_mask)
+    gfp = fp.to(dtype).reshape(p.total_cells, p.cell_cap)
+    f_args = (ftab, p.ncells, g[0], g[1], g[2], gfp, prd)
+    # tolerances: kernel and plain version make the same cutoff decisions
+    # (r2 is rounded alike); the series and the sums round and order
+    # differently. atol scaled by max|value| covers cancelling rows.
+    rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    out = {}
+    for name, fn, plain, args in (
+            ("eam_cell_rho", ek.eam_cell_rho, ek.eam_cell_rho_reference,
+             rho_args),
+            ("eam_cell_force", ek.eam_cell_force,
+             ek.eam_cell_force_reference, f_args)):
+        got = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{label} {name}: not finite")
+        vmax = ref.abs().max().item()
+        err = (got - ref).abs()
+        bad = int((err > rtol * vmax + rtol * ref.abs()).sum())
+        max_abs = err.max().item()
+        ms = cuda_ms(lambda: fn(*args), reps=20)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+        log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
+            f"({p.total_cells * p.cell_cap} rows), max|value| {vmax:.6g}, "
+            f"max abs err {max_abs:.3e} (rtol {rtol:g}, atol {rtol:g}*max),"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if bad:
+            raise RuntimeError(f"{label} {name}: {bad} values out of "
+                               "tolerance")
+        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def eam_card_vs_cpu(pot: str) -> None:
+    """Phase 7: the EAM slice, cells 6, f64, 10 steps, on the card and on
+    the CPU (plain versions): thermo rel 1e-10."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.presets import eam_bulk_cu_sim
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        sim = eam_bulk_cu_sim(cells=6, dtype=torch.float64, device=dev,
+                              potential_path=pot, list_mode="sorted")
+        sim.setup()
+        rows[dev] = sim.run(10, thermo_every=10)
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        for k in ("temp", "pe", "etotal", "press"):
+            if not math.isclose(a[k], b[k], rel_tol=1e-10):
+                raise RuntimeError(f"eam card vs cpu, step {a['step']} {k}:"
+                                   f" {a[k]!r} vs {b[k]!r}")
+    last = rows["cuda"][-1]
+    log(f"[eam-small] cells 6 f64, 10 steps: card and CPU agree at rel "
+        f"1e-10 (step 10 etotal {last['etotal']:.10f}, press "
+        f"{last['press']:.6f})")
+
+
+@contextlib.contextmanager
+def annotated(targets):
+    """Wrap module functions in torch.profiler ranges for one profile,
+    without touching the library: [(module, attribute, label), ...]."""
+    from torch.profiler import record_function
+
+    saved = []
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            with record_function(_label):
+                return _fn(*args, **kwargs)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_eam(sim, nsteps: int, ms_per_step: float) -> None:
+    """torch.profiler over one EAM segment: device time per step of the
+    rho kernel, the force kernel (both by kernel name), the fp glue and the
+    re-binning (the on-device rebuild decision, wrap and local permutation,
+    every step; both by profiler range) and the rest (kicks, layout
+    transposes); the device idle share against the unprofiled ms/step.
+    The ranges hold only PyTorch ops: the trace does not attribute the
+    kernels launched through ctypes to an enclosing range."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lammps_kokkos_port_tpu_torch.ops import eam_kernels, sortedforce
+
+    runner = sim._get_segment_runner()
+    runner(sim.state, sim.nl, nsteps)  # warm-up
+    torch.cuda.synchronize()
+    # the names the step and the force pass call
+    labels = {"rebin": [(sortedforce, "needs_rebuild"),
+                        (sortedforce, "rebuild_if")],
+              "fp glue": [(eam_kernels, "embedding_fp")]}
+    targets = [(m, n, lab) for lab, fns in labels.items() for m, n in fns]
+    with annotated(targets):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner(sim.state, sim.nl, nsteps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    # device ops; the ranges' own device-side spans (first to last kernel,
+    # gaps included) are not device time
+    ops = [e for e in events
+           if e.device_type == DeviceType.CUDA and e.name not in labels]
+    total = sum(e.time_range.elapsed_us() for e in ops)
+    if total <= 0:
+        raise RuntimeError("profile: the trace shows no device time")
+    split = {name: sum(e.time_range.elapsed_us() for e in ops
+                       if f"{name}_kernel" in e.name)
+             for name in ("eam_cell_rho", "eam_cell_force")}
+    for lab in labels:
+        split[lab] = sum(e.device_time_total for e in events
+                         if e.device_type == DeviceType.CPU
+                         and e.name == lab)
+    if not all(split.values()):
+        raise RuntimeError(f"profile: a part shows no device time: {split}")
+    split["rest"] = total - sum(split.values())
+    per = {k: v / nsteps / 1e3 for k, v in split.items()}  # ms per step
+    busy = total / nsteps / 1e3
+    log(f"[eam-32k profile] {nsteps} steps, device time per step "
+        + ", ".join(f"{k} {v:.4f} ms ({100 * v / busy:.1f}%)"
+                    for k, v in per.items())
+        + f"; device busy {busy:.4f} ms/step over {len(ops) / nsteps:.1f} "
+        f"device ops/step; profiled wall {wall / nsteps * 1e3:.4f} ms/step;"
+        f" idle share vs unprofiled {ms_per_step * 1e3:.4f} ms/step: "
+        f"{100 * (1 - busy / (ms_per_step * 1e3)):.1f}%")
 
 def main() -> int:
     import torch
@@ -169,8 +356,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from lammps_kokkos_port_tpu_torch.ops import pair_kernels
-    from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+    from lammps_kokkos_port_tpu_torch.io.eam_reader import (
+        write_sutton_chen_funcfl)
+    from lammps_kokkos_port_tpu_torch.ops import (cuda_build, eam_kernels,
+                                                  pair_kernels)
+    from lammps_kokkos_port_tpu_torch.presets import (eam_bulk_cu_sim,
+                                                      lj_melt_sim)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -184,11 +375,14 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_log = pair_kernels.build()
-    log(f"[build] nvcc {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE)
+    log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src, text in build_logs.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "stack frame", "warning")):
+                log(f"[build] {src}: {line.strip()}")
 
     # 2. kernel vs plain at the main path's grids
     t0 = time.perf_counter()
@@ -238,10 +432,67 @@ def main() -> int:
     check_run(sim1m, rows, "lj-1m")
     step_rate(sim1m, 20, "lj-1m")
 
-    print(json.dumps({"kernels": [{
-        "name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
-        "launches": launches, **main_cell}]}))
+    # 6.-8. the EAM deck on the synthetic Sutton-Chen stand-in
+    with tempfile.TemporaryDirectory() as tmp:
+        pot = write_sutton_chen_funcfl(os.path.join(tmp, "sc.eam"))
+        t0 = time.perf_counter()
+        eam = eam_bulk_cu_sim(cells=20, dtype=torch.float32, device=dev,
+                              potential_path=pot, list_mode="sorted")
+        eam.setup()
+        eam64 = eam_bulk_cu_sim(cells=20, dtype=torch.float64, device=dev,
+                                potential_path=pot, list_mode="sorted")
+        eam64.setup()
+        cc = eam.nl.params.cell_cap
+        log(f"[setup] eam-32k f32 + f64 decks {time.perf_counter() - t0:.1f}"
+            f" s, grid {eam.nl.params.ncells} x cc {cc}")
+        # the kernels stage their channels in dynamic shared memory only
+        # (csrc/cell_stencil.cuh launch_shape: cc rounded up to a warp,
+        # 128 / lanes cells per block), which ptxas does not report
+        lanes = -(-cc // 32) * 32
+        cpb = 1 if lanes >= 128 else 128 // lanes
+        log(f"[build] dynamic shared memory per block at cc {cc} ({lanes} x "
+            f"{cpb} threads): " + ", ".join(
+                f"{name} {nch * cpb * cc * 4} B f32 / {nch * cpb * cc * 8} B"
+                f" f64" for name, nch in (("lj_cell_force", 3),
+                                          ("eam_cell_rho", 3),
+                                          ("eam_cell_force", 4))))
+        eam_cells = eam_kernels_vs_plain(eam, torch.float32, "eam-32k f32")
+        eam_kernels_vs_plain(eam64, torch.float64, "eam-32k f64")
+        del eam64
+        eam_card_vs_cpu(pot)
+
+        # 8. the EAM main path: counted launches over the run
+        params0 = eam.nl.params
+        eam_kernels.eam_cell_rho.launches = 0
+        eam_kernels.eam_cell_force.launches = 0
+        rows = eam.run(EAM_STEPS, thermo_every=50)
+        eam_launches = {"eam_cell_rho": eam_kernels.eam_cell_rho.launches,
+                        "eam_cell_force": eam_kernels.eam_cell_force.launches}
+    log(f"[eam-32k] run({EAM_STEPS}): launches {eam_launches}, nbuilds "
+        f"{eam.nl.nbuilds}, loop {eam.last_loop_time:.3f} s incl. "
+        f"{len(rows)} thermo rows, grid {eam.nl.params.ncells} x cc "
+        f"{eam.nl.params.cell_cap}")
+    n_rho, n_force = eam_launches.values()
+    # one launch of each per force step; an overflow retry (the grid grew)
+    # re-runs a segment's steps
+    if n_rho != n_force or n_rho < EAM_STEPS or (
+            n_rho != EAM_STEPS and eam.nl.params == params0):
+        raise RuntimeError(f"EAM kernels not launched once per force step: "
+                           f"{eam_launches} over {EAM_STEPS} steps")
+    if eam.nl.nbuilds <= 1:
+        raise RuntimeError("EAM run made no distance-checked rebuild")
+    check_run(eam, rows, "eam-32k", bound=EAM_DRIFT_BOUND)
+    eam_step = step_rate(eam, 50, "eam-32k")
+    profile_eam(eam, 50, eam_step)
+
+    print(json.dumps({"kernels": [
+        {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
+         "launches": launches, **main_cell},
+        *({"name": name, "route": "cuda", "source": EAM_SOURCE,
+           "replaces": EAM_REPLACES[name], "launches": eam_launches[name],
+           **eam_cells[name]} for name in ("eam_cell_rho", "eam_cell_force")),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,9 @@ Between rebuilds a step is: kick, drift, one force kernel, kick
 
 The loop is plain Python over eager tensor ops. The rebuild schedule is
 known on the host, so the only host/device synchronisation of a segment is
-the caller's read of the overflow flag at its end.
+the caller's read of the overflow flag at its end. Distance-checked
+policies (`check yes`, delay > every) run through the generic step of
+integrate/verlet.py instead.
 """
 
 from __future__ import annotations
@@ -55,11 +57,11 @@ def make_sorted_nve_segment(integrator, style):
         p = nl.params
         every = max(p.every, 1)
         if p.check or p.delay > every:
-            # the JAX package decides each step on the device (lax.cond);
-            # an eager copy would synchronise the host every step
+            # the rebuild schedule is not known on the host: the generic
+            # step (integrate/verlet.make_step) decides on the device
             raise NotImplementedError(
                 "the fused segment supports `neigh_modify check no` with "
-                "delay <= every only")
+                "delay <= every only; use verlet.make_sorted_step_segment")
         prd = state.box.prd.to(state.dtype)
         st = state
         planar = sortedforce.planar

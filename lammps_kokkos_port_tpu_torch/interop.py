@@ -1,7 +1,7 @@
 """Conversion between the JAX package's objects and the port's.
 
-The JAX package's `State` and `PairLJCut` arrive here as plain dicts of
-numpy arrays plus their static fields (field names as in the JAX
+The JAX package's `State`, `PairLJCut` and `PairEAM` arrive here as plain
+dicts of numpy arrays plus their static fields (field names as in the JAX
 dataclasses; the box as a nested dict), so this module imports neither
 jax nor the JAX package. The tests use it to feed both packages the same
 state.
@@ -16,11 +16,16 @@ import torch
 
 from .core.box import Box
 from .core.state import State
+from .models.pair_eam import PairEAM
 from .models.pair_lj import PairLJCut
 
 _STATE_ARRAYS = ("x", "v", "f", "type", "tag", "image", "q", "molecule",
                  "mass", "mask", "virial")
 _PAIR_ARRAYS = ("lj1", "lj2", "lj3", "lj4", "cutsq", "offset")
+_EAM_ARRAYS = ("frho_spline", "rhor_spline", "z2r_spline", "type2frho",
+               "type2rhor", "type2z2r", "cutsq")
+_EAM_STATIC = {"ntypes": int, "nrho": int, "nr": int, "drho": float,
+               "dr": float, "rhomax": float, "cutmax": float}
 
 
 def dataclass_to_arrays(obj) -> dict:
@@ -86,4 +91,17 @@ def pair_from_arrays(d: dict, device="cpu") -> PairLJCut:
 def pair_to_arrays(pair: PairLJCut) -> dict:
     d = {k: getattr(pair, k).detach().cpu().numpy() for k in _PAIR_ARRAYS}
     d.update(ntypes=pair.ntypes, cut_global_max=pair.cut_global_max)
+    return d
+
+
+def pair_eam_from_arrays(d: dict, device="cpu") -> PairEAM:
+    """Port PairEAM from {table: numpy array, static field: value}, the
+    field names of the JAX PairEAM (spline tables, type maps, cutsq)."""
+    return PairEAM(**{k: _tensor(d[k], device) for k in _EAM_ARRAYS},
+                   **{k: cast(d[k]) for k, cast in _EAM_STATIC.items()})
+
+
+def pair_eam_to_arrays(pair: PairEAM) -> dict:
+    d = {k: getattr(pair, k).detach().cpu().numpy() for k in _EAM_ARRAYS}
+    d.update({k: getattr(pair, k) for k in _EAM_STATIC})
     return d

@@ -24,13 +24,16 @@ class ForceField:
     def compute(self, state: State, nl, eflag: bool, vflag: bool):
         """Returns (f, epair, emol, virial6); epair/emol are None unless
         eflag, virial is None unless vflag."""
-        from ..ops import sortedforce
+        from ..ops import eamdense, sortedforce
 
         if not isinstance(nl, sortedforce.SortedCells):
             raise NotImplementedError(
                 f"list type {type(nl).__name__} is not ported; only the "
                 "sorted cell-major layout is")
-        f, pe, vir = sortedforce.compute(self.pair, state, nl, eflag, vflag)
+        # two-pass styles like EAM take ops/eamdense
+        ops = (eamdense if getattr(self.pair, "dense_two_pass", False)
+               else sortedforce)
+        f, pe, vir = ops.compute(self.pair, state, nl, eflag, vflag)
         emol = (torch.zeros((), dtype=state.dtype, device=state.device)
                 if eflag else None)
         return f, pe, emol, vir

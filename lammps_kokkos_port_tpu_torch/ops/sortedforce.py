@@ -9,8 +9,9 @@ layout itself):
   - at every neighbor rebuild the per-atom arrays are permuted into the new
     cell assignment (`rebuild_state`, once per `every` steps);
   - the force pass reads positions in grid layout and writes forces in the
-    same layout through the CUDA cell kernel (ops/pair_kernels), so the hot
-    loop has no gathers or scatters at all.
+    same layout through the CUDA cell kernels (ops/pair_kernels for
+    lj/cut, ops/eam_kernels for EAM), so the force pass has no gathers or
+    scatters at all.
 
 JAX's clamped gathers and dropping scatters become explicit masks here:
 PyTorch raises on out-of-range indices.
@@ -45,17 +46,22 @@ def _pad_x(cap: int, dtype, device) -> torch.Tensor:
 class SortedCells:
     """Rebuild bookkeeping; the cell buckets are the state layout itself.
 
-    `ago` (steps since the last rebuild) and `nbuilds` are host ints: with
-    the cadence-only rebuild policy the host knows them without asking the
-    GPU. `overflow` is a sticky 0-d bool tensor on the device, read by the
-    host once per segment. (The JAX version also keeps `xhold` and
-    `ndanger` for the distance-checked policy, which is not ported.)
+    `ago` (steps since the last rebuild) and `nbuilds` are host ints
+    between segments: the cadence-only fused segment (integrate/fused.py)
+    keeps them so, since the host knows its rebuild schedule. The
+    distance-checked step (integrate/verlet.make_step) decides on the
+    device and carries them as 0-d device tensors inside a segment;
+    `read_back` brings them to the host with the overflow flag. `overflow`
+    is a sticky 0-d bool tensor on the device. `xhold` holds the positions
+    of the last rebuild, for the distance check (`needs_rebuild`). (The
+    JAX version's `ndanger` counter is not ported.)
     """
 
-    ago: int
-    nbuilds: int
+    ago: int | torch.Tensor
+    nbuilds: int | torch.Tensor
     overflow: torch.Tensor
     params: nbr.NeighborParams
+    xhold: torch.Tensor | None = None
 
 
 def expand_state(state: State, p: nbr.NeighborParams) -> State:
@@ -222,7 +228,8 @@ def _permute(state: State, p: nbr.NeighborParams):
 def build(state: State, p: nbr.NeighborParams):
     """Sort the (already expanded) state; returns (state, SortedCells)."""
     state, overflow = _permute(state, p)
-    return state, SortedCells(ago=0, nbuilds=1, overflow=overflow, params=p)
+    return state, SortedCells(ago=0, nbuilds=1, overflow=overflow, params=p,
+                              xhold=state.x)
 
 
 def rebuild_state(state: State, old: SortedCells):
@@ -233,11 +240,63 @@ def rebuild_state(state: State, old: SortedCells):
     state, overflow = _apply_perm(state, newpos, overflow)
     return state, SortedCells(ago=0, nbuilds=old.nbuilds + 1,
                               overflow=old.overflow | overflow,
-                              params=old.params)
+                              params=old.params, xhold=state.x)
 
 
 def tick(cl: SortedCells) -> SortedCells:
     return dataclasses.replace(cl, ago=cl.ago + 1)
+
+
+def needs_rebuild(state: State, cl: SortedCells) -> torch.Tensor:
+    """The rebuild decision of `neigh_modify every E delay D check yes/no`
+    (ref: Neighbor::decide, src/neighbor.cpp:2309-2404) as a 0-d bool
+    tensor on the device: the cadence, and with `check` a displacement of
+    more than skin/2 since the last rebuild. `cl.ago` is a device
+    tensor."""
+    p = cl.params
+    ago = cl.ago + 1
+    cadence = (ago >= p.delay) & (torch.remainder(ago, max(p.every, 1)) == 0)
+    if not p.check:
+        return cadence
+    half_skin_sq = (0.5 * p.skin) ** 2
+    disp = state.x - cl.xhold
+    d2 = torch.where(state.valid_mask, torch.sum(disp * disp, dim=-1), 0.0)
+    return cadence & (torch.max(d2) > half_skin_sq)
+
+
+def rebuild_if(state: State, cl: SortedCells, rebuild: torch.Tensor):
+    """Wrap and re-bin where the 0-d device flag `rebuild` says so, with no
+    host read: the counterpart of the JAX step's `lax.cond(rebuild,
+    do_rebuild, no_rebuild)`. Both sides are computed every step; the
+    wrapped positions and the local permutation are selected against the
+    unwrapped positions and the identity permutation with torch.where, and
+    the identity permutation leaves the state as it is. `cl.ago` and
+    `cl.nbuilds` are device tensors."""
+    cap = state.capacity
+    valid = state.valid_mask
+    x_w, image_w = state.box.wrap(state.x, state.image)
+    newpos, overflow = _local_perm(state.replace(x=x_w), cl.params)
+    identity = torch.where(valid, torch.arange(cap, device=state.device),
+                           cap)
+    moved = state.replace(x=torch.where(rebuild, x_w, state.x),
+                          image=torch.where(rebuild, image_w, state.image))
+    state, _ = _apply_perm(moved, torch.where(rebuild, newpos, identity),
+                           overflow)
+    return state, SortedCells(
+        ago=torch.where(rebuild, 0, cl.ago + 1),
+        nbuilds=cl.nbuilds + rebuild.to(cl.nbuilds.dtype),
+        overflow=cl.overflow | (rebuild & overflow), params=cl.params,
+        xhold=torch.where(rebuild, state.x, cl.xhold))
+
+
+def read_back(cl: SortedCells) -> tuple[bool, SortedCells]:
+    """A segment's one host read: the overflow flag, and `ago`/`nbuilds`
+    where the segment kept them on the device (returned as host ints)."""
+    if not isinstance(cl.ago, torch.Tensor):
+        return bool(cl.overflow), cl
+    overflow, ago, nbuilds = torch.stack(
+        [cl.overflow.long(), cl.ago.long(), cl.nbuilds.long()]).tolist()
+    return bool(overflow), dataclasses.replace(cl, ago=ago, nbuilds=nbuilds)
 
 
 def planar(a: torch.Tensor) -> torch.Tensor:
@@ -248,10 +307,16 @@ def planar(a: torch.Tensor) -> torch.Tensor:
 
 
 def compute(style, state: State, cl: SortedCells, eflag: bool, vflag: bool):
-    """(f, pe, virial) in the sorted layout. The force-only pass goes
+    """(f, pe, virial) in the sorted layout. Dense two-pass styles (EAM)
+    go to ops/eamdense. For pair_terms styles the force-only pass goes
     through the CUDA cell kernel; energy/virial passes (thermo steps) take
     the plain PyTorch grid path (ops/gridforce), as the JAX package took
     its XLA path there."""
+    if getattr(style, "dense_two_pass", False):
+        from . import eamdense
+
+        return eamdense.compute(style, state, cl, eflag, vflag)
+
     p = cl.params
     cap = state.capacity
     ntot = p.total_cells

@@ -20,6 +20,17 @@ GOLDEN0 = dict(temp=3.0, epair=-6.7733681, etotal=-2.2744931,
                press=-3.7033504)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch CPU thread while this module runs: the suite runs in
+    several worker processes at once, and each worker's intra-op thread
+    pool would otherwise claim every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _by_tag(x, valid, tag):
     return x[valid][np.argsort(tag[valid])]
 

@@ -26,6 +26,17 @@ from lammps_kokkos_port_tpu_torch.ops.pair_kernels import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One PyTorch CPU thread while this module runs: the suite runs in
+    several worker processes at once, and each worker's intra-op thread
+    pool would otherwise claim every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kernel,cells,limit", [
     ("K1", 6, None),
     ("K2", 8, 1),
