@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's main paths (lammps_kokkos_port_tpu_torch) through the
-entry points a user calls, the LJ melt (bench/in.lj) and the EAM deck
+entry points a user calls, the LJ melt (bench/in.lj), the EAM deck
 (bench/in.eam, on the synthetic Sutton-Chen stand-in for Cu_u3.eam, which
-is not in the repository), and checks them on the card:
+is not in the repository) and the input-deck front end (script, cli), and
+checks them on the card:
 
   1. device: the card's name and power limit (nvidia-smi); build every
      CUDA kernel from csrc/ with nvcc, one process per source, all at once;
@@ -24,7 +25,21 @@ is not in the repository), and checks them on the card:
   8. the EAM main path: the 32k-atom bench/in.eam deck in f32, setup() +
      run(200, thermo_every=50) (every 1 delay 5 check yes), each EAM
      kernel launched once per force step, nbuilds > 1, energy drift, the
-     slope-timed step rate, and a torch.profiler split of one segment.
+     slope-timed step rate, and a torch.profiler split of one segment;
+  9. the input-deck slice: bench/in.lj with -var x 4 -var y 2 -var z 4
+     (1,024,000 atoms) through `script.LammpsScript(list_mode="cell")`,
+     f32, the deck's own `run 100`: the cell kernel (K6's port) launched
+     once per force step, nbuilds as the cadence gives, finite rows, drift;
+     the script's Loop time / Performance lines, per-command setup times,
+     the slope-timed step rate, a torch.profiler split, and the cost of a
+     re-binning against a host read of the `check yes` decision;
+ 10. the cell kernel against its plain version at the cell-mode grids of
+     the 1M deck (its state after the run) and the 32k deck (positions
+     jittered), f32 and f64;
+ 11. bench/in.lj at 32k through `cli.main([... "-device", "cuda"])` in the
+     default mode (auto -> sorted): the lj kernel of phases 2-5 launched;
+ 12. the examples/melt deck in f64 through LammpsScript on the card against
+     the same deck on the CPU (rel 1e-10), and its step-0 golden.
 
 Every failed check raises (non-zero exit, no result line). The last two
 lines are the kernel table and the result, one JSON object each.
@@ -51,6 +66,8 @@ REPLACES = "lammps_kokkos_port_tpu/ops/pallas_pair.py:331"
 ALSO_REPLACES = ["lammps_kokkos_port_tpu/ops/pallas_pair.py:645",
                  "lammps_kokkos_port_tpu/ops/pallas_pair.py:799"]
 EAM_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/eam_cell.cu"
+CELL_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_cell_dense.cu"
+CELL_REPLACES = "lammps_kokkos_port_tpu/ops/pallas_pair.py:117"  # K6
 EAM_REPLACES = {  # K4, K5
     "eam_cell_rho": "lammps_kokkos_port_tpu/ops/pallas_eam.py:200",
     "eam_cell_force": "lammps_kokkos_port_tpu/ops/pallas_eam.py:219",
@@ -61,6 +78,60 @@ EAM_STEPS = 200
 # |etotal drift| per atom over EAM_STEPS, eV: a sanity bound, not a physics
 # claim (the reference's own in.eam log drifts 6.7e-4 eV/atom per 100 steps)
 EAM_DRIFT_BOUND = 0.01
+
+# bench/in.lj of the LAMMPS distribution
+IN_LJ = """# 3d Lennard-Jones melt
+
+variable        x index 1
+variable        y index 1
+variable        z index 1
+
+variable        xx equal 20*$x
+variable        yy equal 20*$y
+variable        zz equal 20*$z
+
+units           lj
+atom_style      atomic
+
+lattice         fcc 0.8442
+region          box block 0 ${xx} 0 ${yy} 0 ${zz}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+
+velocity        all create 1.44 87287 loop geom
+
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+
+neighbor        0.3 bin
+neigh_modify    delay 0 every 20 check no
+
+fix             1 all nve
+
+run             100
+"""
+DECK_1M = {"x": "4", "y": "2", "z": "4"}  # 80 x 40 x 80 fcc cells
+DECK_1M_ATOMS = 1_024_000
+DECK_STEPS = 100
+# examples/melt as tests/test_script.py carries it
+MELT_DECK = """
+units           lj
+atom_style      atomic
+lattice         fcc 0.8442
+region          box block 0 6 0 6 0 6
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+velocity        all create 3.0 87287 loop geom
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+neigh_modify    every 20 delay 0 check no
+fix             1 all nve
+thermo          50
+run             50
+"""
 
 
 def log(msg: str) -> None:
@@ -292,27 +363,22 @@ def annotated(targets):
             setattr(mod, name, fn)
 
 
-def profile_eam(sim, nsteps: int, ms_per_step: float) -> None:
-    """torch.profiler over one EAM segment: device time per step of the
-    rho kernel, the force kernel (both by kernel name), the fp glue and the
-    re-binning (the on-device rebuild decision, wrap and local permutation,
-    every step; both by profiler range) and the rest (kicks, layout
-    transposes); the device idle share against the unprofiled ms/step.
-    The ranges hold only PyTorch ops: the trace does not attribute the
-    kernels launched through ctypes to an enclosing range."""
+def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
+                    kernels, labels) -> None:
+    """torch.profiler over one segment of `nsteps` after a warm-up: device
+    time per step of each kernel in `kernels` (by kernel name), of each
+    profiler range in `labels` ({range: [(module, function), ...]}, the
+    named functions of the step wrapped in that range) and the rest; the
+    device idle share against the unprofiled ms/step. The ranges hold only
+    PyTorch ops: the trace does not attribute the kernels launched through
+    ctypes to an enclosing range."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from lammps_kokkos_port_tpu_torch.ops import eam_kernels, sortedforce
-
     runner = sim._get_segment_runner()
     runner(sim.state, sim.nl, nsteps)  # warm-up
     torch.cuda.synchronize()
-    # the names the step and the force pass call
-    labels = {"rebin": [(sortedforce, "needs_rebuild"),
-                        (sortedforce, "rebuild_if")],
-              "fp glue": [(eam_kernels, "embedding_fp")]}
     targets = [(m, n, lab) for lab, fns in labels.items() for m, n in fns]
     with annotated(targets):
         with profile(activities=[ProfilerActivity.CPU,
@@ -331,7 +397,7 @@ def profile_eam(sim, nsteps: int, ms_per_step: float) -> None:
         raise RuntimeError("profile: the trace shows no device time")
     split = {name: sum(e.time_range.elapsed_us() for e in ops
                        if f"{name}_kernel" in e.name)
-             for name in ("eam_cell_rho", "eam_cell_force")}
+             for name in kernels}
     for lab in labels:
         split[lab] = sum(e.device_time_total for e in events
                          if e.device_type == DeviceType.CPU
@@ -341,13 +407,183 @@ def profile_eam(sim, nsteps: int, ms_per_step: float) -> None:
     split["rest"] = total - sum(split.values())
     per = {k: v / nsteps / 1e3 for k, v in split.items()}  # ms per step
     busy = total / nsteps / 1e3
-    log(f"[eam-32k profile] {nsteps} steps, device time per step "
+    log(f"[{label} profile] {nsteps} steps, device time per step "
         + ", ".join(f"{k} {v:.4f} ms ({100 * v / busy:.1f}%)"
                     for k, v in per.items())
         + f"; device busy {busy:.4f} ms/step over {len(ops) / nsteps:.1f} "
         f"device ops/step; profiled wall {wall / nsteps * 1e3:.4f} ms/step;"
         f" idle share vs unprofiled {ms_per_step * 1e3:.4f} ms/step: "
         f"{100 * (1 - busy / (ms_per_step * 1e3)):.1f}%")
+
+
+@contextlib.contextmanager
+def counted_segment_steps(steps: list):
+    """Record the length of every segment the runner's generic step
+    segment is asked to run (each step is one force pass), without
+    touching the library."""
+    from lammps_kokkos_port_tpu_torch import runner as runner_mod
+
+    make = runner_mod.make_step_segment
+
+    def counting_make(*args, **kwargs):
+        seg = make(*args, **kwargs)
+
+        def run(state, nl, nsteps):
+            steps.append(nsteps)
+            return seg(state, nl, nsteps)
+
+        return run
+
+    runner_mod.make_step_segment = counting_make
+    try:
+        yield
+    finally:
+        runner_mod.make_step_segment = make
+
+
+def run_deck(script, path: str) -> tuple[list, dict]:
+    """script.file(path), collecting the thermo rows the script prints and
+    the wall time of each command (the script's `one`)."""
+    rows, times = [], {}
+    emit, one = script._emit_thermo_row, script.one
+
+    def emit_row(*args):
+        rows.append(emit(*args))
+        return rows[-1]
+
+    def timed_one(line):
+        t0 = time.perf_counter()
+        one(line)
+        words = line.split("#")[0].split()
+        if words:
+            times[words[0]] = (times.get(words[0], 0.0)
+                               + time.perf_counter() - t0)
+
+    script._emit_thermo_row, script.one = emit_row, timed_one
+    script.file(path)
+    return rows, times
+
+
+def cell_kernel_vs_plain(sim, dtype, label: str, jitter: float) -> dict:
+    """Phase 10 on one grid and dtype: the cell kernel against its plain
+    version on the sim's buckets, positions (jittered by a seeded
+    +-jitter/2 where jitter > 0) in `dtype`."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops.cell_kernels import (
+        lj_cell_dense, lj_cell_dense_reference)
+
+    st, cl = sim.state, sim.nl
+    x = st.x.double()
+    if jitter > 0:
+        gen = torch.Generator(device=st.device).manual_seed(SEED)
+        x = torch.where(st.valid_mask[:, None], x + (torch.rand(
+            x.shape, generator=gen, device=st.device,
+            dtype=torch.float64) - 0.5) * jitter, x)
+    x = x.to(dtype)
+    prd = st.box.prd.to(dtype)
+    key = sim.pair_style.kernel_key()
+    args = (key, cl.buckets, cl.stencil, x, prd)
+    f = lj_cell_dense(*args)
+    ref = lj_cell_dense_reference(*args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(f).all()):
+        raise RuntimeError(f"{label}: kernel forces are not finite")
+    # tolerances as for the lj kernel: the same cutoff decisions (minimum
+    # image and r2 rounded alike), the sums in another order
+    rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    fmax = ref.abs().max().item()
+    err = (f - ref).abs()
+    bad = int((err > rtol * fmax + rtol * ref.abs()).sum())
+    max_abs = err.max().item()
+    ms = cuda_ms(lambda: lj_cell_dense(*args), reps=20)
+    plain_ms = cuda_ms(lambda: lj_cell_dense_reference(*args), reps=3,
+                       warmup=1)
+    p = cl.params
+    log(f"[cell kernel] {label}: grid {p.ncells} x cc {p.cell_cap} "
+        f"({p.total_cells * p.cell_cap} lanes, {st.nlocal} atoms), max|f| "
+        f"{fmax:.6g}, max abs err {max_abs:.3e} (rtol {rtol:g}, atol "
+        f"{rtol:g}*max|f|), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if bad or fmax <= 0:
+        raise RuntimeError(f"{label}: {bad} force components out of "
+                           "tolerance (or all zero)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host time of fn() in ms, each call ended by a synchronise."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def deck_1m_cell(tmp: str) -> tuple:
+    """Phase 9: the 1M in.lj deck through LammpsScript(list_mode="cell").
+    Returns (the script, the cell kernel's launches over the deck)."""
+    import dataclasses
+
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import cell_kernels, cellforce
+    from lammps_kokkos_port_tpu_torch.script import LammpsScript
+
+    path = os.path.join(tmp, "in.lj")
+    Path(path).write_text(IN_LJ)
+    script = LammpsScript(dtype=torch.float32, device="cuda",
+                          list_mode="cell", var_overrides=DECK_1M)
+    steps = []
+    t0 = time.perf_counter()
+    cell_kernels.lj_cell_dense.launches = 0
+    with counted_segment_steps(steps):
+        rows, times = run_deck(script, path)
+    launches = cell_kernels.lj_cell_dense.launches
+    wall = time.perf_counter() - t0
+    sim = script.sim
+    n, p = sim.state.nlocal, sim.nl.params
+    loop = sim.last_loop_time
+    log(f"[lj-1m-cell] deck wall {wall:.3f} s, loop {loop:.3f} s, setup "
+        f"(wall - loop) {wall - loop:.3f} s; per command "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in
+                    sorted(times.items(), key=lambda kv: -kv[1])[:6]))
+    # one launch per force pass: the setup pass and every step of every
+    # segment run (an overflow retry re-runs its segment from the start)
+    expect = 1 + sum(steps)
+    log(f"[lj-1m-cell] {n} atoms, grid {p.ncells} x cc {p.cell_cap}, "
+        f"{launches} cell kernel launches (expected {expect}: setup + "
+        f"segments {steps}, {len(steps) - 1} overflow retries), nbuilds "
+        f"{sim.nl.nbuilds}")
+    if n != DECK_1M_ATOMS:
+        raise RuntimeError(f"lj-1m-cell: {n} atoms, not {DECK_1M_ATOMS}")
+    if launches != expect or sum(steps) < DECK_STEPS:
+        raise RuntimeError(f"lj-1m-cell: {launches} launches for {expect} "
+                           "force passes")
+    if sim.nl.nbuilds != 1 + DECK_STEPS // 20:
+        raise RuntimeError(f"lj-1m-cell: nbuilds {sim.nl.nbuilds}, not "
+                           f"{1 + DECK_STEPS // 20}")
+    if [r["step"] for r in rows] != [0, DECK_STEPS]:
+        raise RuntimeError(f"lj-1m-cell: rows at {[r['step'] for r in rows]}")
+    check_run(sim, rows, "lj-1m-cell")
+
+    # the `check yes` decision: a host read of the displacement flag on a
+    # cadence step against the re-binning a device-side selection would
+    # run on every step
+    cl_check = dataclasses.replace(
+        sim.nl, ago=19, params=dataclasses.replace(p, check=True))
+    read_ms = host_ms(lambda: cellforce.needs_rebuild(sim.state, cl_check))
+    rebin_ms = host_ms(lambda: cellforce.rebuild_merge(sim.state, sim.nl))
+    log(f"[lj-1m-cell] check-yes decision: host read of the flag "
+        f"{read_ms:.4f} ms, re-binning {rebin_ms:.4f} ms (median of 10, "
+        "host clock, synchronised)")
+    return script, launches
+
 
 def main() -> int:
     import torch
@@ -358,8 +594,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from lammps_kokkos_port_tpu_torch.io.eam_reader import (
         write_sutton_chen_funcfl)
-    from lammps_kokkos_port_tpu_torch.ops import (cuda_build, eam_kernels,
-                                                  pair_kernels)
+    from lammps_kokkos_port_tpu_torch import cli
+    from lammps_kokkos_port_tpu_torch.ops import (cell_kernels, cellforce,
+                                                  cuda_build, eam_kernels,
+                                                  pair_kernels, sortedforce)
+    from lammps_kokkos_port_tpu_torch.script import LammpsScript
     from lammps_kokkos_port_tpu_torch.presets import (eam_bulk_cu_sim,
                                                       lj_melt_sim)
 
@@ -375,7 +614,8 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE)
+    build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE,
+                                  cell_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -483,7 +723,70 @@ def main() -> int:
         raise RuntimeError("EAM run made no distance-checked rebuild")
     check_run(eam, rows, "eam-32k", bound=EAM_DRIFT_BOUND)
     eam_step = step_rate(eam, 50, "eam-32k")
-    profile_eam(eam, 50, eam_step)
+    profile_segment(eam, 50, eam_step, "eam-32k",
+                    ("eam_cell_rho", "eam_cell_force"),
+                    {"rebin": [(sortedforce, "needs_rebuild"),
+                               (sortedforce, "rebuild_if")],
+                     "fp glue": [(eam_kernels, "embedding_fp")]})
+    del sim32, sim1m, gold, eam
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 9. the input-deck slice: 1M in.lj through LammpsScript, cell mode
+        script, cell_launches = deck_1m_cell(tmp)
+        sim = script.sim
+        cc = sim.nl.params.cell_cap
+        lanes = -(-cc // 32) * 32
+        cpb = 1 if lanes >= 128 else 128 // lanes
+        log(f"[build] lj_cell_dense dynamic shared memory per block at cc "
+            f"{cc} ({lanes} x {cpb} threads): {cpb * cc * 16} B f32 / "
+            f"{cpb * cc * 28} B f64")
+        cell_step = step_rate(sim, 20, "lj-1m-cell")
+        profile_segment(sim, 40, cell_step, "lj-1m-cell", ("lj_cell_dense",),
+                        {"rebin": [(cellforce, "rebuild_merge")]})
+
+        # 10. the cell kernel against its plain version: the 1M deck's grid
+        # (its state after the run) and the 32k deck's (jittered lattice)
+        main_dense = cell_kernel_vs_plain(sim, torch.float32, "1M-cell f32",
+                                          jitter=0.0)
+        cell_kernel_vs_plain(sim, torch.float64, "1M-cell f64", jitter=0.0)
+        del script, sim
+        sim32c = lj_melt_sim(cells=20, t_init=T_INIT, seed=SEED,
+                             dtype=torch.float32, device=dev, list_mode="cell")
+        sim32c.setup()
+        cell_kernel_vs_plain(sim32c, torch.float32, "32k-cell f32", jitter=0.1)
+        cell_kernel_vs_plain(sim32c, torch.float64, "32k-cell f64", jitter=0.1)
+        del sim32c
+
+        # 11. the 32k deck through the command line, default mode (sorted)
+        path = os.path.join(tmp, "in.lj")
+        pair_kernels.lj_cell_force.launches = 0
+        t0 = time.perf_counter()
+        if cli.main(["-in", path, "-device", "cuda"]) != 0:
+            raise RuntimeError("cli: non-zero return")
+        cli_launches = pair_kernels.lj_cell_force.launches
+        log(f"[cli-32k] cli.main -in in.lj -device cuda: "
+            f"{time.perf_counter() - t0:.3f} s, {cli_launches} lj kernel "
+            f"launches")
+        if cli_launches < 1 + DECK_STEPS:
+            raise RuntimeError(f"cli-32k: {cli_launches} lj kernel launches "
+                               f"for {DECK_STEPS} steps")
+
+        # 12. examples/melt in f64: the card against the CPU, and golden
+        path = os.path.join(tmp, "in.melt")
+        Path(path).write_text(MELT_DECK)
+        melt = {d: run_deck(LammpsScript(dtype=torch.float64, device=d),
+                            path)[0] for d in ("cuda", "cpu")}
+    for a, b in zip(melt["cuda"], melt["cpu"], strict=True):
+        for k in ("temp", "epair", "etotal", "press"):
+            if not math.isclose(a[k], b[k], rel_tol=1e-10):
+                raise RuntimeError(f"melt deck card vs cpu, step {a['step']} "
+                                   f"{k}: {a[k]!r} vs {b[k]!r}")
+    row0 = melt["cuda"][0]
+    log(f"[melt-deck] f64, card and CPU rows agree at rel 1e-10 (steps "
+        f"{[r['step'] for r in melt['cuda']]}); step 0 epair "
+        f"{row0['epair']:.10f} (log -6.7733681)")
+    if abs(row0["epair"] + 6.7733681) > 2e-7 or len(melt["cuda"]) != 2:
+        raise RuntimeError(f"melt deck step 0 mismatch: {row0}")
 
     print(json.dumps({"kernels": [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
@@ -492,6 +795,8 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": EAM_SOURCE,
            "replaces": EAM_REPLACES[name], "launches": eam_launches[name],
            **eam_cells[name]} for name in ("eam_cell_rho", "eam_cell_force")),
+        {"name": "lj_cell_dense", "route": "cuda", "source": CELL_SOURCE,
+         "replaces": CELL_REPLACES, "launches": cell_launches, **main_dense},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,7 @@ def make_sorted_nve_segment(integrator, style):
             # step (integrate/verlet.make_step) decides on the device
             raise NotImplementedError(
                 "the fused segment supports `neigh_modify check no` with "
-                "delay <= every only; use verlet.make_sorted_step_segment")
+                "delay <= every only; use verlet.make_step_segment")
         prd = state.box.prd.to(state.dtype)
         st = state
         planar = sortedforce.planar

@@ -1,14 +1,20 @@
 """Velocity-Verlet NVE integrator (fix nve semantics, group-aware), and the
-generic step for the sorted layout.
+generic step for the sorted layout and the dense cell buckets.
 
 Port of `lammps_kokkos_port_tpu/integrate/verlet.py` (ref:
 src/fix_nve.cpp:64-141, src/verlet.cpp:229-358): `Integrator` and
 `make_step`, for plain NVE with no fixes and any pair style. The step
 keeps the JAX order: kick and drift, the rebuild decision, the force pass
-(`force_fn`), the final kick. The rebuild decision stays on the device
-(ops/sortedforce.needs_rebuild + rebuild_if, the counterpart of the JAX
-step's `lax.cond`), so a segment of steps reads the host once, at its end.
-The cadence-only LJ path has its own fused segment (integrate/fused.py).
+(`force_fn`), the final kick. Each list type takes the JAX step's
+`lax.cond(rebuild, do_rebuild, no_rebuild)` its own way:
+  - sorted layout: the decision stays on the device
+    (ops/sortedforce.needs_rebuild + rebuild_if), so a segment of steps
+    reads the host once, at its end;
+  - cell buckets (list mode "cell"): the decision is made on the host
+    (ops/cellforce.needs_rebuild) and a rebuild wraps and re-bins
+    (`rebuild_merge`) only when it fires; otherwise `tick`.
+The cadence-only LJ path of the sorted layout has its own fused segment
+(integrate/fused.py).
 """
 
 from __future__ import annotations
@@ -18,8 +24,8 @@ import dataclasses
 import torch
 
 from ..core.state import State
+from ..ops import cellforce, sortedforce
 from ..ops import neighbor as nbr
-from ..ops import sortedforce
 from ..utils.units import Units
 
 
@@ -64,15 +70,33 @@ class Integrator:
         return self.nve_v(state)
 
 
-def make_step(integrator: Integrator, force_fn):
-    """step(state, nl) -> (state, nl) for the sorted layout, `nl.ago` and
-    `nl.nbuilds` as device tensors. force_fn(state, nl, eflag, vflag) ->
-    (f, epair, emol, virial), as Simulation.force_fn."""
+def list_ops(nl):
+    """The module that owns a list's rebuild bookkeeping and read-back."""
+    return (cellforce if isinstance(nl, cellforce.CellListDense)
+            else sortedforce)
 
-    def step(state: State, nl: sortedforce.SortedCells):
+
+def make_step(integrator: Integrator, force_fn):
+    """step(state, nl) -> (state, nl) for the sorted layout (`nl.ago` and
+    `nl.nbuilds` as device tensors) or the dense cell buckets (host ints).
+    force_fn(state, nl, eflag, vflag) -> (f, epair, emol, virial), as
+    Simulation.force_fn."""
+
+    def step(state: State, nl):
         state = integrator.initial_integrate(state)
-        rebuild = sortedforce.needs_rebuild(state, nl)
-        state, nl = sortedforce.rebuild_if(state, nl, rebuild)
+        if isinstance(nl, cellforce.CellListDense):
+            # the decision is a host bool (ops/cellforce.needs_rebuild);
+            # positions are wrapped on rebuild steps only, as in the
+            # reference (ref: src/verlet.cpp:262-293)
+            if cellforce.needs_rebuild(state, nl):
+                x, image = state.box.wrap(state.x, state.image)
+                state = state.replace(x=x, image=image)
+                nl = cellforce.rebuild_merge(state, nl)
+            else:
+                nl = cellforce.tick(nl)
+        else:
+            rebuild = sortedforce.needs_rebuild(state, nl)
+            state, nl = sortedforce.rebuild_if(state, nl, rebuild)
         f, _, _, _ = force_fn(state, nl, False, False)
         state = integrator.final_integrate(state.replace(f=f))
         return state, nl
@@ -80,18 +104,20 @@ def make_step(integrator: Integrator, force_fn):
     return step
 
 
-def make_sorted_step_segment(integrator: Integrator, force_fn):
+def make_step_segment(integrator: Integrator, force_fn):
     """Segment runner (state, nl, nsteps) -> (state, nl) built on
-    `make_step`. The returned list keeps `ago` and `nbuilds` on the device
-    (ops/sortedforce.read_back brings them to the host with the overflow
-    flag); a set overflow flag NaN-poisons the returned positions."""
+    `make_step`. For the sorted layout the returned list keeps `ago` and
+    `nbuilds` on the device (`list_ops(nl).read_back` brings them to the
+    host with the overflow flag); a set overflow flag NaN-poisons the
+    returned positions."""
     step = make_step(integrator, force_fn)
 
-    def runner(state: State, nl: sortedforce.SortedCells, nsteps: int):
+    def runner(state: State, nl, nsteps: int):
         dev = state.device
-        nl = dataclasses.replace(
-            nl, ago=torch.as_tensor(nl.ago, device=dev),
-            nbuilds=torch.as_tensor(nl.nbuilds, device=dev))
+        if isinstance(nl, sortedforce.SortedCells):
+            nl = dataclasses.replace(
+                nl, ago=torch.as_tensor(nl.ago, device=dev),
+                nbuilds=torch.as_tensor(nl.nbuilds, device=dev))
         for _ in range(nsteps):
             state, nl = step(state, nl)
         state = state.replace(ntimestep=state.ntimestep + nsteps)

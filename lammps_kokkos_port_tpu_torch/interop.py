@@ -1,10 +1,10 @@
 """Conversion between the JAX package's objects and the port's.
 
-The JAX package's `State`, `PairLJCut` and `PairEAM` arrive here as plain
-dicts of numpy arrays plus their static fields (field names as in the JAX
-dataclasses; the box as a nested dict), so this module imports neither
-jax nor the JAX package. The tests use it to feed both packages the same
-state.
+The JAX package's `State`, `PairLJCut`, `PairEAM` and `CellListDense`
+arrive here as plain dicts of numpy arrays plus their static fields (field
+names as in the JAX dataclasses; the box and the neighbor params as nested
+dicts), so this module imports neither jax nor the JAX package. The tests
+use it to feed both packages the same state.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from .core.box import Box
 from .core.state import State
 from .models.pair_eam import PairEAM
 from .models.pair_lj import PairLJCut
+from .ops.cellforce import CellListDense
+from .ops.neighbor import NeighborParams
 
 _STATE_ARRAYS = ("x", "v", "f", "type", "tag", "image", "q", "molecule",
                  "mass", "mask", "virial")
@@ -105,3 +107,28 @@ def pair_eam_to_arrays(pair: PairEAM) -> dict:
     d = {k: getattr(pair, k).detach().cpu().numpy() for k in _EAM_ARRAYS}
     d.update({k: getattr(pair, k) for k in _EAM_STATIC})
     return d
+
+
+def cell_list_from_arrays(d: dict, device="cpu") -> CellListDense:
+    """Port CellListDense from {field: numpy array or static value}, the
+    field names of the JAX CellListDense (`params` as a nested dict of the
+    NeighborParams fields; `ndanger` is not carried)."""
+    p = dict(d["params"])
+    p["ncells"] = tuple(int(n) for n in p["ncells"])
+    p["images"] = tuple(int(n) for n in p["images"])
+    return CellListDense(
+        buckets=_tensor(d["buckets"], device),
+        stencil=_tensor(d["stencil"], device),
+        xhold=_tensor(d["xhold"], device), ago=int(d["ago"]),
+        nbuilds=int(d["nbuilds"]),
+        overflow=_tensor(np.asarray(d["overflow"], dtype=bool), device),
+        params=NeighborParams(**p))
+
+
+def cell_list_to_arrays(cl: CellListDense) -> dict:
+    """Inverse of cell_list_from_arrays."""
+    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
+    return {"buckets": host(cl.buckets), "stencil": host(cl.stencil),
+            "xhold": host(cl.xhold), "ago": cl.ago, "nbuilds": cl.nbuilds,
+            "overflow": host(cl.overflow),
+            "params": dataclasses.asdict(cl.params)}

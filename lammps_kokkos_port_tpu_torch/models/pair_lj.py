@@ -14,6 +14,7 @@ evdwl = r6inv (lj3 r6inv - lj4) - offset.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -43,8 +44,13 @@ class PairLJCut:
 
     def kernel_key(self):
         """Hashable scalar-coefficient key ("lj", lj1, lj2, cutsq) for the
-        cell force kernel (ops/pair_kernels), or None when the style is not
-        a single-type style."""
+        cell force kernels (ops/pair_kernels, ops/cell_kernels), or None
+        when the style is not a single-type style. Read from the device
+        once per style: the force pass asks for it on every step."""
+        return self._kernel_key
+
+    @functools.cached_property
+    def _kernel_key(self):
         if self.ntypes != 1:
             return None
         tab = torch.stack([self.lj1[1, 1], self.lj2[1, 1],

@@ -13,12 +13,15 @@ pair):
 so F_i = -sum_j dx * [(fp_i + fp_j) a(u) + b(u)] mirrors the reference's
 psip assembly (src/MANYBODY/pair_eam.cpp:268-292) with fp = F'(rho).
 
-`compute` serves the sorted (cell-major) layout only:
-  - force-only calls (every MD step) go to the two CUDA cell sweeps of
-    ops/eam_kernels, at every grid size (the JAX package switched to this
-    module's roll path above 300k rows; the port has no such dispatch);
-  - energy/virial calls (thermo steps) take the Newton-halved grid-roll
-    path below, plain PyTorch, as the JAX package left it to XLA.
+`compute` serves the sorted (cell-major) layout and the dense cell buckets
+of list mode "cell":
+  - sorted force-only calls (every MD step) go to the two CUDA cell sweeps
+    of ops/eam_kernels, at every grid size (the JAX package switched to
+    this module's roll path above 300k rows; the port has no such
+    dispatch);
+  - energy/virial calls (thermo steps), and every call on cell buckets,
+    take the Newton-halved grid-roll path below, plain PyTorch, as the JAX
+    package left it to XLA.
 """
 
 from __future__ import annotations
@@ -129,13 +132,16 @@ def embedding_fp(tabs: dict, rho: torch.Tensor,
 
 
 def compute(style, state: State, cl, eflag: bool, vflag: bool):
-    """Dense two-pass EAM over the sorted layout. Returns (f, pe, virial);
+    """Dense two-pass EAM over the sorted layout or the dense cell buckets
+    (ops/cellforce), in the list's layout. Returns (f, pe, virial);
     pe/virial are None unless requested."""
+    from .cellforce import CellListDense
     from .sortedforce import SortedCells
 
-    if not isinstance(cl, SortedCells):
+    if not isinstance(cl, (SortedCells, CellListDense)):
         raise NotImplementedError(
-            "dense EAM is ported for the sorted cell-major layout only")
+            "dense EAM is ported for the sorted layout and the cell "
+            "buckets only")
     if not all(state.box.periodic):
         raise NotImplementedError(
             "dense EAM is ported for fully periodic boxes only")
@@ -143,17 +149,29 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
     if tabs is None:
         raise NotImplementedError("dense EAM needs a single-type style")
 
-    if not eflag and not vflag:
+    sorted_layout = isinstance(cl, SortedCells)
+    if sorted_layout and not eflag and not vflag:
         from .eam_kernels import compute_force_sorted
 
         return compute_force_sorted(style, tabs, state, cl), None, None
 
     p = cl.params
     nx, ny, nz = p.ncells
+    ntot = p.total_cells
     cc = p.cell_cap
+    cap = state.capacity
     dt = state.dtype
-    xg = state.x.reshape(nx, ny, nz, cc, 3)
-    vg = state.valid_mask.reshape(nx, ny, nz, cc)  # every valid row owned
+    if sorted_layout:
+        xg = state.x.reshape(nx, ny, nz, cc, 3)
+        vg = state.valid_mask.reshape(nx, ny, nz, cc)
+        og = vg  # every valid row owned
+    else:
+        # read the atom-ordered state through the buckets (every pass, as
+        # the JAX package's cell path does; no kernel in either package)
+        bidx = torch.clamp(cl.buckets[:ntot], max=cap - 1).long()
+        xg = state.x[bidx].reshape(nx, ny, nz, cc, 3)
+        vg = (cl.buckets[:ntot] < cap).reshape(nx, ny, nz, cc)
+        og = state.owned_mask[bidx].reshape(nx, ny, nz, cc) & vg
 
     u_lo, u_hi = tabs["u_range"]
     rho_lo, rho_hi = tabs["rho_range"]
@@ -210,7 +228,7 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
         b = clenshaw(tabs["b"], us, u_lo, u_hi)
         fpair = torch.where(valid, -((fp_i + fp_j) * a + b), 0.0)
         fij = dx * fpair[..., None]
-        w_i = vg[..., :, None].to(dt)
+        w_i = og[..., :, None].to(dt)
         w = w_i if half else w_i * 0.5
         parts = []
         if eflag:
@@ -228,7 +246,7 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
                 torch.sum(wf * dx[..., 1] * dx[..., 2]),
             ])
         return (torch.sum(fij, dim=-2), -torch.sum(fij, dim=-3),
-                torch.stack(parts))
+                torch.stack(parts) if parts else None)
 
     f_grid, tallies = roll_pass(force_term, extra=fp)
 
@@ -236,10 +254,17 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
     idx = 0
     if eflag:
         e_embed = torch.sum(torch.where(
-            vg, clenshaw(tabs["F"], s, s_lo, s_hi)
+            og, clenshaw(tabs["F"], s, s_lo, s_hi)
             + torch.where(rho > rho_hi, fp * (rho - rho_hi), 0.0), 0.0))
         pe = e_embed + tallies[0]
         idx = 1
     if vflag:
         virial = tallies[idx:idx + 6]
-    return f_grid.reshape(-1, 3), pe, virial
+    f_flat = f_grid.reshape(-1, 3)
+    if sorted_layout:
+        return f_flat, pe, virial
+    # back to atom order; empty lanes are dropped
+    f = torch.zeros_like(state.x)
+    keep = vg.reshape(-1)
+    f[cl.buckets[:ntot].reshape(-1)[keep].long()] = f_flat[keep]
+    return f, pe, virial

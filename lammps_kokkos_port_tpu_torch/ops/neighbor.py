@@ -1,7 +1,8 @@
 """Neighbor bookkeeping: cell grid sizing and cell binning.
 
 Port of the parts of `lammps_kokkos_port_tpu/ops/neighbor.py` that the
-sorted cell-major layout uses (ref: src/neighbor.cpp, src/nbin_standard.cpp,
+sorted cell-major layout and the dense cell buckets of list mode "cell"
+use (ref: src/neighbor.cpp, src/nbin_standard.cpp,
 and the Kokkos clamp/count/grow/rerun idiom of
 src/KOKKOS/npair_kokkos.cpp:225-330). Shapes are fixed by NeighborParams;
 capacity overflow sets a flag on the device that the host reads at segment
@@ -167,6 +168,15 @@ def size_for_system(
     return NeighborParams(
         cutneigh=cutneigh, skin=skin, every=every, delay=delay, check=check,
         K=K, cell_cap=cell_cap, ncells=ncells,
+    )
+
+
+def grow(p: NeighborParams, factor: float = 1.3) -> NeighborParams:
+    """Grow capacities after an overflow (ref: npair_kokkos.cpp grow)."""
+    return dataclasses.replace(
+        p,
+        K=int(p.K * factor) + 8,
+        cell_cap=int(p.cell_cap * factor) + 4,
     )
 
 

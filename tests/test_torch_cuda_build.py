@@ -6,8 +6,8 @@ of the flags, so an edited source or header builds anew; a library already
 on disk is loaded as it is, with its compiler log.
 """
 
-from lammps_kokkos_port_tpu_torch.ops import cuda_build, eam_kernels
-from lammps_kokkos_port_tpu_torch.ops import pair_kernels
+from lammps_kokkos_port_tpu_torch.ops import (cell_kernels, cuda_build,
+                                              eam_kernels, pair_kernels)
 
 
 def test_library_name_follows_source_and_headers(tmp_path):
@@ -42,7 +42,7 @@ def test_built_library_is_reused(tmp_path, monkeypatch):
 
 
 def test_each_kernel_module_has_its_own_source():
-    sources = {pair_kernels.SOURCE, eam_kernels.SOURCE}
-    assert len(sources) == 2
+    sources = {pair_kernels.SOURCE, eam_kernels.SOURCE, cell_kernels.SOURCE}
+    assert len(sources) == 3
     assert all(s.parent == cuda_build.CSRC and s.exists() for s in sources)
-    assert len({cuda_build.lib_path(s) for s in sources}) == 2
+    assert len({cuda_build.lib_path(s) for s in sources}) == 3
