@@ -39,7 +39,23 @@ checks them on the card:
  11. bench/in.lj at 32k through `cli.main([... "-device", "cuda"])` in the
      default mode (auto -> sorted): the lj kernel of phases 2-5 launched;
  12. the examples/melt deck in f64 through LammpsScript on the card against
-     the same deck on the CPU (rel 1e-10), and its step-0 golden.
+     the same deck on the CPU (rel 1e-10), and its step-0 golden;
+ 13. the sorted-kernel ablation entry point, `prof.sorted_ablate.main` at
+     the 32k deck (every label of benchmarks/prof/prof_sorted_ablate.py),
+     with K7's and the P9 kernels' launches counted over it; K7 against
+     its plain version (f32, f64), the P9 kernels against theirs (f32),
+     and asm_only's staging loads counted in its SASS (cuobjdump);
+ 14. the Newton-half entry point, `prof.plane_half.main` at cells 20 and 63
+     (the labels of prof_v3_32k.py and prof_v3_iso.py), with K8's and
+     P10's launches counted over it; K8 against its plain version (32k f32
+     and f64, 1M f32) and against the full-stencil lj kernel, P10 against
+     its plain version (1M f32), and the three kernels' times on the same
+     1M inputs.
+
+Every kernel in the kernel line carries its bound (bound_ms, bound_by:
+the larger of bytes over the HBM rate and operations over the type's
+peak, for this run's inputs; PEAK_* and *_PAIR_OPS below) and library_ms
+(null: no single PyTorch call computes these passes).
 
 Every failed check raises (non-zero exit, no result line). The last two
 lines are the kernel table and the result, one JSON object each.
@@ -72,8 +88,37 @@ EAM_REPLACES = {  # K4, K5
     "eam_cell_rho": "lammps_kokkos_port_tpu/ops/pallas_eam.py:200",
     "eam_cell_force": "lammps_kokkos_port_tpu/ops/pallas_eam.py:219",
 }
+COLUMN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_full.cu"
+HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_plane_half.cu"
+ABLATE_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_ablate.cu"
+PROF_REPLACES = {  # K7, K8, P9, P10
+    "lj_column_force": "lammps_kokkos_port_tpu/ops/pallas_pair.py:354",
+    "lj_plane_half": "lammps_kokkos_port_tpu/ops/pallas_pair.py:512",
+    "lj_ablate": "benchmarks/prof/prof_sorted_ablate.py:171",
+    "lj_plane_half_fwd": "benchmarks/prof/prof_v3_iso.py:97",
+}
+# asm_only's 14 unrolled staging blocks of 4 channels: global loads in SASS
+ASM_ONLY_MIN_LDG = 14 * 4
 SEED = 87287
 T_INIT = 1.44
+# The least time the card could take (bound_ms): the larger of the bytes a
+# kernel must move (inputs read once, outputs written once) over the HBM
+# rate and its operations over the non-tensor peak of their type; H100 SXM
+# data sheet figures (SXM part, dense, at its 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# Operations per unordered pair within the cutoff, each pair counted once
+# so that full-stencil and Newton-half kernels are held to the same work:
+# lj: displacement 3, r2 5, cutoff 1, 1/r2 1, r6 2, fpair 4, fij 3, +f_i 3,
+# -f_j 3; forward only (P10) drops -f_j; EAM: displacement, r2 and cutoff 9,
+# clamp 2, each Clenshaw series 2 + 3 per coefficient (29 for rho, 28 each
+# for a and b), rho +2; force fpair 4, fij 3, +f_i 3, -f_j 3.
+LJ_PAIR_OPS = 25
+LJ_FWD_PAIR_OPS = 22
+EAM_RHO_PAIR_OPS = 9 + 2 + (2 + 3 * 29) + 2
+EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
+# the library call column: no single PyTorch call computes these passes
+LIBRARY_MS = None
 EAM_STEPS = 200
 # |etotal drift| per atom over EAM_STEPS, eV: a sanity bound, not a physics
 # claim (the reference's own in.eam log drifts 6.7e-4 eV/atom per 100 steps)
@@ -156,6 +201,84 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype) -> dict:
+    """bound_ms / bound_by of a pass doing `pair_ops` operations on each of
+    `pairs` unordered pairs and moving `nbytes` (PEAK_* above)."""
+    t_ops = pairs * pair_ops / PEAK_OPS_PER_S[str(dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return {"pairs": pairs, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": LIBRARY_MS}
+
+
+def grid_pairs(ncells, gx, gy, gz, prd, cutsq) -> int:
+    """Unordered pairs within the cutoff on a cell-major grid: the plain
+    twins' 27-cell walk without its self lane, counted and halved (padding
+    rows sit far from every row)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import stencil
+
+    n = 0
+    with torch.no_grad():
+        for _, r2, pair_ok, _ in stencil(ncells, gx, gy, gz, prd):
+            ok = r2 < cutsq
+            if pair_ok is not None:
+                ok &= pair_ok
+            n += int(ok.sum())
+    return n // 2
+
+
+def dense_pairs(buckets, stencil, x, prd, cutsq, chunk: int = 4096) -> int:
+    """Unordered pairs within the cutoff over list mode "cell"'s buckets,
+    with the minimum image, as the cell kernel masks them."""
+    import torch
+
+    cap = x.shape[0]
+    ntot = buckets.shape[0] - 1
+    valid_b = buckets < cap
+    xb = x[torch.clamp(buckets, max=cap - 1).long()]
+    n = 0
+    for c0 in range(0, ntot, chunk):
+        cids = slice(c0, min(c0 + chunk, ntot))
+        n27 = stencil[cids].long()
+        nch = n27.shape[0]
+        live = (n27 < ntot)[:, :, None].expand(-1, -1, buckets.shape[1])
+        cand_valid = valid_b[n27] & live
+        d = xb[cids][:, :, None, :] - xb[n27].reshape(nch, 1, -1, 3)
+        d = d - prd * torch.round(d * (1.0 / prd))
+        r2 = (d * d).sum(-1)
+        ok = ((r2 < cutsq) & valid_b[cids][:, :, None]
+              & cand_valid.reshape(nch, 1, -1)
+              & (buckets[cids][:, :, None]
+                 != buckets[n27].reshape(nch, 1, -1)))
+        n += int(ok.sum())
+    return n // 2
+
+
+def check_close(label: str, got, ref, rtol: float) -> float:
+    """Each component of `got` within rtol*max|ref| + rtol*|ref| of `ref`
+    (tensors or sequences of tensors); raises otherwise. Returns the max
+    abs error."""
+    import torch
+
+    got = torch.stack([a.reshape(-1) for a in got]) if isinstance(
+        got, (tuple, list)) else got
+    ref = torch.stack([a.reshape(-1) for a in ref]) if isinstance(
+        ref, (tuple, list)) else ref
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: kernel output is not finite")
+    vmax = ref.abs().max().item()
+    err = (got - ref).abs()
+    bad = int((err > rtol * vmax + rtol * ref.abs()).sum())
+    if bad:
+        raise RuntimeError(f"{label}: {bad} values out of tolerance (rtol "
+                           f"{rtol:g}, max abs err {err.max().item():.3e}, "
+                           f"max|ref| {vmax:.6g})")
+    return err.max().item()
+
+
 def kernel_vs_plain(sim, dtype, label: str) -> dict:
     """Phase 2 on one grid and dtype."""
     import torch
@@ -191,15 +314,19 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
     ms = cuda_ms(lambda: lj_cell_force(*args), reps=20)
     plain_ms = cuda_ms(lambda: lj_cell_force_reference(*args), reps=5,
                        warmup=1)
+    rows = p.total_cells * p.cell_cap
+    bound = bound_of(grid_pairs(p.ncells, g[0], g[1], g[2], prd, key[-1]),
+                     LJ_PAIR_OPS, rows * 6 * g.element_size(), dtype)
     log(f"[kernel] {label}: grid {p.ncells} x cc {p.cell_cap} "
-        f"({p.total_cells * p.cell_cap} rows), max|f| {fmax:.6g}, "
+        f"({rows} rows), max|f| {fmax:.6g}, "
         f"max abs err {max_abs:.3e}, max rel err {max_rel:.3e} "
         f"(rtol {rtol:g}, atol {rtol:g}*max|f|), kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, {bound['pairs']} pairs in the cutoff, "
+        f"bound {bound['bound_ms']:.4g} ms ({bound['bound_by']})")
     if bad:
         raise RuntimeError(f"{label}: {bad} force components out of "
                            "tolerance")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def check_run(sim, rows, label: str, bound: float = 0.02) -> None:
@@ -288,6 +415,13 @@ def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
     # (r2 is rounded alike); the series and the sums round and order
     # differently. atol scaled by max|value| covers cancelling rows.
     rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    rows = p.total_cells * p.cell_cap
+    pairs = grid_pairs(p.ncells, g[0], g[1], g[2], prd, cutsq)
+    item = g.element_size()
+    bounds = {"eam_cell_rho": bound_of(pairs, EAM_RHO_PAIR_OPS,
+                                       rows * 4 * item, dtype),
+              "eam_cell_force": bound_of(pairs, EAM_FORCE_PAIR_OPS,
+                                         rows * 7 * item, dtype)}
     out = {}
     for name, fn, plain, args in (
             ("eam_cell_rho", ek.eam_cell_rho, ek.eam_cell_rho_reference,
@@ -305,14 +439,17 @@ def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
         max_abs = err.max().item()
         ms = cuda_ms(lambda: fn(*args), reps=20)
         plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+        b = bounds[name]
         log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
-            f"({p.total_cells * p.cell_cap} rows), max|value| {vmax:.6g}, "
+            f"({rows} rows), max|value| {vmax:.6g}, "
             f"max abs err {max_abs:.3e} (rtol {rtol:g}, atol {rtol:g}*max),"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {pairs} pairs "
+            f"in the cutoff, bound {b['bound_ms']:.4g} ms ({b['bound_by']})")
         if bad:
             raise RuntimeError(f"{label} {name}: {bad} values out of "
                                "tolerance")
-        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                     **b}
     return out
 
 
@@ -500,14 +637,20 @@ def cell_kernel_vs_plain(sim, dtype, label: str, jitter: float) -> dict:
     plain_ms = cuda_ms(lambda: lj_cell_dense_reference(*args), reps=3,
                        warmup=1)
     p = cl.params
+    nbytes = ((cl.buckets.numel() + cl.stencil.numel()) * 4
+              + 2 * x.numel() * x.element_size())
+    bound = bound_of(dense_pairs(cl.buckets, cl.stencil, x, prd, key[-1]),
+                     LJ_PAIR_OPS, nbytes, dtype)
     log(f"[cell kernel] {label}: grid {p.ncells} x cc {p.cell_cap} "
         f"({p.total_cells * p.cell_cap} lanes, {st.nlocal} atoms), max|f| "
         f"{fmax:.6g}, max abs err {max_abs:.3e} (rtol {rtol:g}, atol "
-        f"{rtol:g}*max|f|), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"{rtol:g}*max|f|), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound['pairs']} pairs in the cutoff, bound "
+        f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
     if bad or fmax <= 0:
         raise RuntimeError(f"{label}: {bad} force components out of "
                            "tolerance (or all zero)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -585,6 +728,231 @@ def deck_1m_cell(tmp: str) -> tuple:
     return script, launches
 
 
+def jittered_planes(sim, dtype):
+    """prof.grid.sorted_planes of `sim` in `dtype`, the real rows' positions
+    jittered by the seeded +-0.05 of phase 2."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
+
+    st = sim.state
+    gen = torch.Generator(device=st.device).manual_seed(SEED)
+    jitter = (torch.rand(st.x.shape, generator=gen, device=st.device,
+                         dtype=torch.float64) - 0.5) * 0.1
+    x = torch.where(st.valid_mask[:, None], st.x.double() + jitter,
+                    st.x.double())
+    return sorted_planes(sim, x, dtype=dtype)
+
+
+def timed_check(label, kernel, plain, args, rtol, bound) -> dict:
+    """A kernel against its plain version on `args`: the max abs error
+    (check_close), median CUDA-event times of both, and `bound`."""
+    err = check_close(label, kernel(*args), plain(*args), rtol)
+    ms = cuda_ms(lambda: kernel(*args), reps=20)
+    plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+    log(f"[kernel] {label}: max abs err {err:.3e} (rtol {rtol:g}, atol "
+        f"{rtol:g}*max), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound['pairs']} pairs, bound {bound['bound_ms']:.4g} ms "
+        f"({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def asm_only_loads() -> dict:
+    """Global loads (LDG) in the SASS of each asm_only instance, read with
+    cuobjdump from the built library: all 14 blocks' staging must be
+    there, or V2 measures nothing."""
+    import re
+    import shutil
+
+    from lammps_kokkos_port_tpu_torch.ops import cuda_build
+    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(cuda_build.lib_path(ablate_kernels.SOURCE))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    loads = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "asm_only" in name:
+            kind = "f64" if "asm_only_kernelId" in name else "f32"
+            loads[kind] = len(re.findall(r"\bLDG", part))
+    log(f"[build] asm_only SASS global loads (cuobjdump -sass): {loads}, "
+        f"at least {ASM_ONLY_MIN_LDG} = 14 blocks x 4 channels")
+    if len(loads) != 2 or min(loads.values()) < ASM_ONLY_MIN_LDG:
+        raise RuntimeError(f"asm_only does not stage every block: {loads}")
+    return loads
+
+
+def phase_sorted_ablate(dev) -> dict:
+    """13. prof.sorted_ablate.main at the 32k deck, with the launches of K7
+    and the P9 kernels counted over it; then K7 against its twin (f32 and
+    f64, jittered) and the P9 kernels against theirs (f32; asm_only on the
+    script's inputs, exactly; the pair variants on inputs where their math
+    is live, since on the melt no row passes 0 <= id < 3 within the cutoff
+    of the constant candidate). Returns the kernel line's entries."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import column_kernels as ck
+    from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
+    from lammps_kokkos_port_tpu_torch.prof import sorted_ablate
+    from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
+
+    sim = lj_melt_sim(cells=20, t_init=T_INIT, seed=SEED,
+                      dtype=torch.float32, device=dev)
+    sim.setup()
+    counted = {"lj_column_force": ck.lj_column_force,
+               "asm_only": ak.asm_only, "pair_only": ak.pair_only,
+               "pair_only_approx": ak.pair_only_approx}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = sorted_ablate.main(cells=20, device=dev, sim=sim)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"[prof-ablate] sorted_ablate.main(cells=20): "
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    if min(launches.values()) <= 0 or not all(
+            math.isfinite(v) for v in res.values()):
+        raise RuntimeError(f"sorted_ablate: launches {launches}, {res}")
+    loads = asm_only_loads()
+
+    out = {}
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        sp = jittered_planes(sim, dtype)
+        bound = bound_of(grid_pairs(sp.ncells, *sp.flat[:3], sp.prd,
+                                    sp.key[-1]),
+                         LJ_PAIR_OPS, sp.cap * 7 * sp.buf.element_size(),
+                         dtype)
+        r = timed_check(f"K7 lj_column_force 32k {dtype}",
+                        ck.lj_column_force, ck.lj_column_force_reference,
+                        (sp.key, sp.ncells, *sp.col, sp.prd), rtol, bound)
+        if dtype == torch.float32:
+            out["lj_column_force"] = {
+                "launches": launches["lj_column_force"], **r}
+
+    # P9 on the script's inputs (times, asm_only's values) and on live ones
+    sp = sorted_planes(sim)
+    args = (sp.ncells, *sp.col, sp.prd)
+    item = sp.buf.element_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def near3(a):
+        u = torch.rand(a.shape, generator=gen, device=dev, dtype=a.dtype)
+        return 3.0 + torch.where(u < 0.5, -1.0, 1.0) * (0.8 + 0.8 * u)
+
+    gi = sp.col[3]
+    live = (sp.ncells, *(near3(a) for a in sp.col[:3]),
+            torch.remainder(torch.arange(gi.numel(), device=dev), 4).to(
+                gi.dtype).reshape(gi.shape) - 1, sp.prd)
+    # pair_only's needed work: 14*cc candidates for each row it keeps
+    # (0 <= id < FILL and within the cutoff of the constant candidate)
+    ref = ak.pair_only_reference(sp.key, *args)
+    d2 = sum((a - ak.FILL) ** 2 for a in sp.flat[:3]).reshape(-1)
+    keep = int(((sp.ids >= 0) & (sp.ids < ak.FILL)
+                & (d2 < sp.key[-1])).sum())
+    variants = {"asm_only": timed_check(
+        "P9 asm_only 32k f32", ak.asm_only, ak.asm_only_reference, args,
+        0.0, bound_of(0, 0, sp.cap * 7 * item, torch.float32))}
+    log(f"[prof-ablate] pair_only on the melt: {keep} rows with 0 <= id < "
+        f"{ak.FILL} within the cutoff, max|f| "
+        f"{max(a.abs().max().item() for a in ref):.3e}")
+    for name, rtol in (("pair_only", 1e-4), ("pair_only_approx", 1e-4)):
+        fn = getattr(ak, name)
+        err = check_close(f"P9 {name} live f32", fn(sp.key, *live),
+                          ak.pair_only_reference(sp.key, *live), rtol)
+        r = timed_check(f"P9 {name} 32k f32", lambda *a, fn=fn: fn(
+            sp.key, *a), lambda *a: ak.pair_only_reference(sp.key, *a),
+            args, rtol, bound_of(keep * 14 * sp.cc, LJ_FWD_PAIR_OPS,
+                                 sp.cap * 7 * item, torch.float32))
+        variants[name] = {**r, "max_abs_err": max(err, r["max_abs_err"])}
+    for name, v in variants.items():
+        v["launches"] = launches[name]
+    out["lj_ablate"] = {
+        **{k: variants["pair_only"][k] for k in
+           ("ms", "plain_ms", "pairs", "bound_ms", "bound_by",
+            "library_ms")},
+        "launches": sum(v["launches"] for v in variants.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+        "variants": variants, "asm_only_sass_ldg": loads}
+    return out
+
+
+def phase_plane_half(dev) -> dict:
+    """14. prof.plane_half.main at cells 20 and 63 (32k and 1M atoms), with
+    the launches of K8 and P10 counted over both; then K8 against its twin
+    (32k f32 and f64, 1M f32) and against the port's full-stencil kernel
+    (both sizes), P10 against its twin (1M f32), all on jittered planes, and
+    the times of K8, P10 and lj_cell_force on the same 1M inputs. Returns
+    the kernel line's entries."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import half_kernels as hk
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+    from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+    from lammps_kokkos_port_tpu_torch.prof import plane_half
+
+    sims = {}
+    for cells in (20, 63):
+        sims[cells] = lj_melt_sim(cells=cells, t_init=T_INIT, seed=SEED,
+                                  dtype=torch.float32, device=dev)
+        sims[cells].setup()
+    counted = {"lj_plane_half": hk.lj_plane_half_force,
+               "lj_plane_half_fwd": hk.lj_plane_half_fwd}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = {cells: plane_half.main(cells=cells, device=dev, sim=sim)
+           for cells, sim in sims.items()}
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"[prof-plane] plane_half.main(cells=20), (cells=63): "
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    # the lattice start's forces cancel to f32 rounding in both kernels
+    if (min(launches.values()) <= 0
+            or max(r["parity col vs v3"] for r in res.values()) > 1e-3
+            or not all(math.isfinite(v) for r in res.values()
+                       for v in r.values())):
+        raise RuntimeError(f"plane_half: launches {launches}, {res}")
+
+    out = {}
+    for cells, dtype, rtol in ((20, torch.float32, 1e-4),
+                               (20, torch.float64, 1e-10),
+                               (63, torch.float32, 1e-4)):
+        sp = jittered_planes(sims[cells], dtype)
+        size = "32k" if cells == 20 else "1M"
+        args = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
+        pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
+        nbytes = sp.cap * 7 * sp.buf.element_size()
+        k8 = timed_check(f"K8 lj_plane_half {size} {dtype}",
+                         hk.lj_plane_half_force,
+                         hk.lj_plane_half_force_reference, args, rtol,
+                         bound_of(pairs, LJ_PAIR_OPS, nbytes, dtype))
+        full = lj_cell_force(sp.key, sp.ncells, *sp.flat[:3], sp.prd)
+        err = check_close(f"K8 against lj_cell_force {size} {dtype}",
+                          [a.reshape(-1) for a in
+                           hk.lj_plane_half_force(*args)],
+                          [a.reshape(-1) for a in full], rtol)
+        full_ms = cuda_ms(lambda: lj_cell_force(
+            sp.key, sp.ncells, *sp.flat[:3], sp.prd), reps=20)
+        log(f"[prof-plane] {size} {dtype}: K8 {k8['ms']:.4f} ms against "
+            f"the full-stencil lj_cell_force {full_ms:.4f} ms on the same "
+            f"inputs ({k8['ms'] / full_ms:.3f}x), max abs difference "
+            f"{err:.3e}")
+        if cells == 63:
+            fwd = timed_check(f"P10 lj_plane_half_fwd 1M {dtype}",
+                              hk.lj_plane_half_fwd,
+                              hk.lj_plane_half_fwd_reference, args, rtol,
+                              bound_of(pairs, LJ_FWD_PAIR_OPS, nbytes,
+                                       dtype))
+            out["lj_plane_half"] = {"launches": launches["lj_plane_half"],
+                                    "at": "1M f32", **k8,
+                                    "lj_cell_force_ms": full_ms}
+            out["lj_plane_half_fwd"] = {
+                "launches": launches["lj_plane_half_fwd"], "at": "1M f32",
+                **fwd}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -596,8 +964,10 @@ def main() -> int:
         write_sutton_chen_funcfl)
     from lammps_kokkos_port_tpu_torch import cli
     from lammps_kokkos_port_tpu_torch.ops import (cell_kernels, cellforce,
-                                                  cuda_build, eam_kernels,
+                                                  column_kernels, cuda_build,
+                                                  eam_kernels, half_kernels,
                                                   pair_kernels, sortedforce)
+    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels
     from lammps_kokkos_port_tpu_torch.script import LammpsScript
     from lammps_kokkos_port_tpu_torch.presets import (eam_bulk_cu_sim,
                                                       lj_melt_sim)
@@ -615,7 +985,8 @@ def main() -> int:
         f", CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE,
-                                  cell_kernels.SOURCE)
+                                  cell_kernels.SOURCE, column_kernels.SOURCE,
+                                  half_kernels.SOURCE, ablate_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -788,6 +1159,10 @@ def main() -> int:
     if abs(row0["epair"] + 6.7733681) > 2e-7 or len(melt["cuda"]) != 2:
         raise RuntimeError(f"melt deck step 0 mismatch: {row0}")
 
+    # 13.-14. the profiling entry points and their kernels
+    prof = phase_sorted_ablate(dev)
+    prof.update(phase_plane_half(dev))
+
     print(json.dumps({"kernels": [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
@@ -797,6 +1172,12 @@ def main() -> int:
            **eam_cells[name]} for name in ("eam_cell_rho", "eam_cell_force")),
         {"name": "lj_cell_dense", "route": "cuda", "source": CELL_SOURCE,
          "replaces": CELL_REPLACES, "launches": cell_launches, **main_dense},
+        *({"name": name, "route": "cuda", "source": source,
+           "replaces": PROF_REPLACES[name], **prof[name]}
+          for name, source in (("lj_column_force", COLUMN_SOURCE),
+                               ("lj_plane_half", HALF_SOURCE),
+                               ("lj_ablate", ABLATE_SOURCE),
+                               ("lj_plane_half_fwd", HALF_SOURCE))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,16 @@ template <> struct Rn<double> {
   }
 };
 
+// The half stencil of the JAX package (_HALF,
+// lammps_kokkos_port_tpu/ops/pallas_pair.py:208-212), in its order: the own
+// cell and the 13 lexicographically positive neighbour offsets, so each
+// unordered pair of cells appears once.
+constexpr int kHalfBlocks = 14;
+__constant__ int kHalf[kHalfBlocks][3] = {
+    {0, 0, 0},   {0, 0, 1},   {0, 1, -1},  {0, 1, 0},  {0, 1, 1},
+    {1, -1, -1}, {1, -1, 0},  {1, -1, 1},  {1, 0, -1}, {1, 0, 0},
+    {1, 0, 1},   {1, 1, -1},  {1, 1, 0},   {1, 1, 1}};
+
 // wrapped neighbour index along one dim and the shift to apply to it
 template <typename T>
 __device__ __forceinline__ int wrap_dim(int c, int n, T prd, T* shift) {
@@ -71,11 +81,12 @@ template <typename T, int NCH> struct Channels {
 
 // Walk the 27 neighbour cells of this thread's cell and call
 // pair(dx, dy, dz, r2, stage, j) for every candidate j with r2 < cutsq
-// that is not the row itself; stage[c * cc + j] holds channel c of
-// candidate j (positions already shifted across the box). Loads the own
+// that is not the row itself (with SelfByLane; without it the pair closure
+// masks the self pair by its own rule); stage[c * cc + j] holds channel c
+// of candidate j (positions already shifted across the box). Loads the own
 // row's channels into own[] first. Every thread of the block must call it
 // (it synchronises the block).
-template <typename T, int NCH, typename Pair>
+template <typename T, int NCH, bool SelfByLane = true, typename Pair>
 __device__ __forceinline__ Row sweep(const Channels<T, NCH>& ch,
                                      const T* __restrict__ prd, int nx,
                                      int ny, int nz, int cc, T cutsq,
@@ -124,7 +135,8 @@ __device__ __forceinline__ Row sweep(const Channels<T, NCH>& ch,
         __syncthreads();
         if (me.row_live) {
           // the self pair sits in the own cell at the own lane
-          const int self_lane = (ox == 0 && oy == 0 && oz == 0) ? lane : -1;
+          const int self_lane =
+              (SelfByLane && ox == 0 && oy == 0 && oz == 0) ? lane : -1;
           for (int j = 0; j < cc; ++j) {
             const T dx = own[0] - stage[j];
             const T dy = own[1] - stage[cc + j];

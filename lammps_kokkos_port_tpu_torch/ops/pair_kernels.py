@@ -30,15 +30,16 @@ _OFFSETS = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
             for oz in (-1, 0, 1)]
 
 
-def check_grid(ncells, channels, prd):
+def check_grid(ncells, channels, prd, min_cells: int = 3):
     """Validate a cell kernel's inputs: [nx*ny*nz, cc] channels of one
-    dtype and device on a grid of >= 3 cells per dim, and a [3] prd."""
+    dtype and device on a grid of >= `min_cells` cells per dim, and a [3]
+    prd."""
     nx, ny, nz = ncells
-    if min(nx, ny, nz) < 3:
+    if min(nx, ny, nz) < min_cells:
         # with fewer than 3 cells a dim's -1 and +1 neighbours coincide and
         # the 27-cell stencil would count a pair twice
-        raise ValueError(f"cell grid {tuple(ncells)} needs >= 3 cells per "
-                         "dim")
+        raise ValueError(f"cell grid {tuple(ncells)} needs >= {min_cells} "
+                         "cells per dim")
     g0 = channels[0]
     shape = g0.shape
     if len(shape) != 2 or shape[0] != nx * ny * nz:
@@ -67,22 +68,23 @@ def check_launch(channels, prd):
         raise ValueError(f"cell_cap {g0.shape[1]} > {MAX_CELL_CAP}")
 
 
-def stencil(ncells, gx, gy, gz, prd, extra=()):
-    """The 27-cell stencil walk of the plain twins. For each neighbour
-    offset the grid is rolled so that cell c faces cell c+offset; cells
-    whose neighbour wraps across the box get an explicit +-prd shift on the
-    candidate coordinates (no minimum image). Yields (d, r2, pair_ok, cand)
-    per offset: d = [dx, dy, dz] own minus candidate, each [nx, ny, nz, cc,
-    cc]; r2 = dx*dx + dy*dy + dz*dz (each product and sum rounded, as the
-    kernels round it); pair_ok masks the self pair (lane index in the own
-    cell); cand = the `extra` channels rolled alike, [nx, ny, nz, cc]."""
+def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS):
+    """The stencil walk of the plain twins, over the 27 neighbour offsets
+    or the given `offsets`. For each offset the grid is rolled so that
+    cell c faces cell c+offset; cells whose neighbour wraps across the box
+    get an explicit +-prd shift on the candidate coordinates (no minimum
+    image). Yields (d, r2, pair_ok, cand) per offset: d = [dx, dy, dz] own
+    minus candidate, each [nx, ny, nz, cc, cc]; r2 = dx*dx + dy*dy + dz*dz
+    (each product and sum rounded, as the kernels round it); pair_ok masks
+    the self pair (lane index in the own cell); cand = the `extra`
+    channels rolled alike, [nx, ny, nz, cc]."""
     nx, ny, nz = ncells
     cc = gx.shape[-1]
     dev = gx.device
     own = [a.reshape(nx, ny, nz, cc) for a in (gx, gy, gz)]
     lane = torch.arange(cc, device=dev)
     not_self = lane[:, None] != lane[None, :]
-    for off in _OFFSETS:
+    for off in offsets:
         shifts = (-off[0], -off[1], -off[2])
         d = []
         for dim, n in enumerate(ncells):

@@ -5,6 +5,10 @@ they reproduce the setup phase of bench/in.lj, examples/melt/in.melt and
 bench/in.eam bit for bit (positions and initial velocities), so thermo
 output can be compared with the JAX package and the reference's golden
 logs.
+
+Every preset runs on the card (`device="cuda"`, the default) unless the
+caller passes `device="cpu"`; asked for the card on a machine without one,
+it raises before it builds anything.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from .core.lattice import Lattice, create_atoms
 from .core.state import State, create_state
 from .core.velocity import create_velocities_geom
 from .models.pair_lj import make_lj_cut
+from .utils.device import resolve
 from .utils.units import get_units
 
 
@@ -26,12 +31,13 @@ def lj_melt_state(
     t_init: float = 3.0,
     seed: int = 87287,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> State:
     """`lattice fcc rho; region box block 0 n 0 n 0 n; create_atoms; mass 1 1;
     velocity all create T seed loop geom` (ref: examples/melt/in.melt,
     bench/in.lj with t_init=1.44, cells=20). `cells` may be a scalar or a
     per-dim tuple."""
+    device = resolve(device)
     units = get_units("lj")
     lat = Lattice(style="fcc", scale=rho, units_name="lj", dimension=3)
     sp = lat.spacing
@@ -48,8 +54,9 @@ def lj_melt_state(
                         units_name="lj", dtype=dtype, device=device)
 
 
-def lj_melt_pair(dtype: torch.dtype = torch.float32, device="cpu"):
+def lj_melt_pair(dtype: torch.dtype = torch.float32, device="cuda"):
     """pair_style lj/cut 2.5; pair_coeff 1 1 1.0 1.0 2.5"""
+    device = resolve(device)
     return make_lj_cut(ntypes=1, coeffs={(1, 1): (1.0, 1.0)}, cut_global=2.5,
                        dtype=dtype, device=device)
 
@@ -63,12 +70,13 @@ def lj_melt_sim(
     delay: int = 0,
     check: bool = False,
     list_mode: str = "auto",
-    device="cpu",
+    device="cuda",
 ):
     """Full melt Simulation ready to run (neigh_modify every 20 delay 0
     check no; skin 0.3; fix nve; dt 0.005)."""
     from .runner import Simulation
 
+    device = resolve(device)
     state = lj_melt_state(cells=cells, t_init=t_init, seed=seed, dtype=dtype,
                           device=device)
     pair = lj_melt_pair(dtype=dtype, device=device)
@@ -85,12 +93,14 @@ def eam_bulk_cu_state(
     *,
     potential_path: str,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> State:
     """bench/in.eam setup: metal units, fcc Cu 3.615, velocity create 1600
     376847 loop geom. Mass comes from the potential file (funcfl sets
     it)."""
     from .io.eam_reader import read_funcfl
+
+    device = resolve(device)
 
     units = get_units("metal")
     ff = read_funcfl(potential_path)
@@ -114,7 +124,7 @@ def eam_bulk_cu_sim(
     *,
     potential_path: str,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     list_mode: str = "auto",
 ):
     """Full bench/in.eam Simulation: pair_style eam with one funcfl file,
@@ -125,6 +135,7 @@ def eam_bulk_cu_sim(
     from .models.pair_eam import make_eam_funcfl
     from .runner import Simulation
 
+    device = resolve(device)
     state = eam_bulk_cu_state(cells=cells, t_init=t_init, seed=seed,
                               potential_path=potential_path, dtype=dtype,
                               device=device)

@@ -317,13 +317,24 @@ class Simulation:
             # capacity overflow inside the segment: grow, rebuild from the
             # snapshot, and re-run the whole segment with the new shapes
             # (restore the snapshot first: the post-segment state is
-            # NaN-poisoned and growth reads self.state)
+            # NaN-poisoned and growth reads self.state). The snapshot is
+            # wrapped into the box before the re-bin, as every rebuild
+            # wraps: the sorted kernels shift a candidate by whole boxes
+            # only where its cell wraps, so an atom binned across a face
+            # with an unwrapped coordinate would see its neighbours a box
+            # away.
             cur_params = self.nl.params
-            self.state = snap_state
+            x, image = snap_state.box.wrap(snap_state.x, snap_state.image)
+            self.state = snap_state.replace(x=x, image=image)
             params = self._grow_params(cur_params)
+            nl = self._build_list(self.state, params)
+            # a snapshot list built at this very state (ago 0: setup, or a
+            # rebuild on the previous segment's last step) is only resized;
+            # any other snapshot gets a new build here, counted once, and
+            # the cadence (ago) and the displacement reference (xhold)
+            # restart from it, as the build returns them
             self.nl = dataclasses.replace(
-                self._build_list(snap_state, params),
-                nbuilds=snap_nl.nbuilds)
+                nl, nbuilds=int(snap_nl.nbuilds) + (int(snap_nl.ago) != 0))
             self._check_overflow_and_grow()
         raise RuntimeError("neighbor overflow retry did not converge")
 

@@ -49,6 +49,7 @@ from .core.lattice import create_atoms as lattice_create_atoms
 from .core.state import State, create_state
 from .core.velocity import create_velocities_geom, create_velocities_loop_all
 from .models.forcefield import ForceField
+from .utils.device import resolve as resolve_device
 from .utils.units import UNIT_SYSTEMS, get_units
 
 
@@ -89,15 +90,15 @@ class LammpsScript:
     """Parse and execute an input script (ref: Input::file/one).
 
     dtype: the run's float type; device: where the run's tensors live
-    ("cpu" or "cuda"); list_mode: the Simulation's list mode ("auto",
-    "sorted" or "cell")."""
+    ("cuda", the default, which raises without a CUDA device, or "cpu");
+    list_mode: the Simulation's list mode ("auto", "sorted" or "cell")."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32, device="cpu",
+    def __init__(self, dtype: torch.dtype = torch.float32, device="cuda",
                  log_file: str | None = None, echo: bool = False,
                  var_overrides: dict | None = None,
                  list_mode: str = "auto"):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.list_mode = list_mode
         self.units_name = "lj"
         self.dimension = 3

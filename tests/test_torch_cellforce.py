@@ -168,7 +168,7 @@ def test_cell_trajectory_matches_jax(every, delay, check):
     packages)."""
     kw = dict(cells=6, t_init=3.0, every=every, delay=delay, check=check,
               list_mode="cell")
-    sim = lj_melt_sim(dtype=torch.float64, **kw)
+    sim = lj_melt_sim(dtype=torch.float64, device="cpu", **kw)
     sim.setup()
     rows = sim.run(11)
     ref = jax_lj_melt_sim(dtype=jnp.float64, **kw)
@@ -192,7 +192,8 @@ def test_cell_trajectory_matches_jax(every, delay, check):
 def test_thermo_modify_norm_matches_jax(norm):
     """`thermo_modify norm` set on both packages' Simulation: lj units
     normalise per atom by default; `norm no` prints totals."""
-    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64)
+    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64,
+                      device="cpu")
     sim.setup()
     ref = jax_lj_melt_sim(cells=6, t_init=1.44, dtype=jnp.float64)
     ref.setup()

@@ -27,7 +27,8 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_lj_melt_state_bit_exact(dtype):
     ref = jax_lj_melt_state(cells=6, t_init=1.44, dtype=getattr(jnp, dtype))
-    got = lj_melt_state(cells=6, t_init=1.44, dtype=getattr(torch, dtype))
+    got = lj_melt_state(cells=6, t_init=1.44, dtype=getattr(torch, dtype),
+                        device="cpu")
     for k in ("x", "v", "type", "tag", "mask"):
         a = np.asarray(getattr(ref, k))
         b = getattr(got, k).numpy()

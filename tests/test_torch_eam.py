@@ -205,7 +205,8 @@ def test_unported_paths_raise(pot):
     """EAM in list mode "auto" would run the JAX package's exact-spline
     matrix engine: the port refuses instead of switching physics. The
     matrix path itself and eam/alloy refuse too."""
-    sim = eam_bulk_cu_sim(cells=5, dtype=torch.float64, potential_path=pot)
+    sim = eam_bulk_cu_sim(cells=5, dtype=torch.float64, potential_path=pot,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="matrix"):
         sim.setup()
     with pytest.raises(NotImplementedError, match="slice 6"):

@@ -74,7 +74,7 @@ def test_eam_slice_matches_jax(pot, jax_ref, monkeypatch):
 
     monkeypatch.setattr(eamdense, "build_poly_tables", counted)
     sim = eam_bulk_cu_sim(cells=6, dtype=torch.float64, potential_path=pot,
-                          list_mode="sorted")
+                          list_mode="sorted", device="cpu")
     sim.setup()
     rows = sim.run(20, thermo_every=10)
 
@@ -121,7 +121,7 @@ def test_eam_deck_matches_jax(pot, jax_ref, mode):
     same system's JAX sorted run. It shares that run, and its interpret-mode
     compiles, with the test above."""
     ref, ref_rows = jax_ref
-    s = LammpsScript(dtype=torch.float64, list_mode=mode)
+    s = LammpsScript(dtype=torch.float64, list_mode=mode, device="cpu")
     rows = []
     emit = s._emit_thermo_row
     s._emit_thermo_row = lambda *a: rows.append(emit(*a)) or rows[-1]

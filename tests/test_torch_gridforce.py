@@ -23,7 +23,8 @@ from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 
 
 def test_gridforce_matches_jax():
-    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64)
+    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64,
+                      device="cpu")
     sim.setup()
     p = sim.nl.params
     jp = jax_nbr.NeighborParams(**dataclasses.asdict(p))

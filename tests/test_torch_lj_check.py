@@ -39,7 +39,7 @@ def test_lj_check_yes_matches_jax():
     """lj/cut under `neigh_modify every 1 delay 0 check yes`: the port's
     generic step with the lj kernel as its force pass (L3 lifted)."""
     sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64, every=1,
-                      delay=0, check=True)
+                      delay=0, check=True, device="cpu")
     sim.setup()
     rows = sim.run(20)
     ref = jax_lj_melt_sim(cells=6, t_init=1.44, dtype=jnp.float64, every=1,

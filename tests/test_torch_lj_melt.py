@@ -40,7 +40,8 @@ def test_trajectory_matches_jax_sorted():
     re-binning) and the final partial block of the static schedule.
     Tolerances as tests/test_sorted.py: positions atol 1e-11, etotal rel
     1e-12."""
-    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64, every=5)
+    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64, every=5,
+                      device="cpu")
     sim.setup()
     rows = sim.run(11)
     ref = jax_lj_melt_sim(cells=6, t_init=1.44, dtype=jnp.float64, every=5,
@@ -63,7 +64,8 @@ def test_trajectory_matches_jax_sorted():
 
 
 def test_golden_step0():
-    sim = lj_melt_sim(cells=10, t_init=3.0, seed=87287, dtype=torch.float64)
+    sim = lj_melt_sim(cells=10, t_init=3.0, seed=87287, dtype=torch.float64,
+                      device="cpu")
     sim.setup()
     row = sim.thermo()
     assert row["natoms"] == 4000

@@ -96,14 +96,15 @@ def jax_short_melt():
 @pytest.fixture(scope="module")
 def port_short_melt():
     return {mode: run_deck(LammpsScript, SHORT_MELT_DECK,
-                           dtype=torch.float64, list_mode=mode)
+                           dtype=torch.float64, list_mode=mode, device="cpu")
             for mode in ("auto", "cell")}
 
 
 def test_melt_deck_step0_golden():
     """examples/melt step 0 (log.8Apr21.melt.g++.1): 864 atoms at the
     golden's T and density give its intensive thermo."""
-    s, rows = run_deck(LammpsScript, MELT_DECK, dtype=torch.float64)
+    s, rows = run_deck(LammpsScript, MELT_DECK, dtype=torch.float64,
+                       device="cpu")
     assert s.sim.list_mode == "sorted"  # "auto" takes the sorted layout
     assert rows[0]["temp"] == pytest.approx(3.0, abs=1e-12)
     assert rows[0]["epair"] == pytest.approx(-6.7733681, abs=2e-7)
@@ -154,9 +155,10 @@ def test_control_flow_and_var_override_match_jax(tmp_path):
     deck = tmp_path / "in.control"
     deck.write_text(CONTROL_DECK.replace("INC", str(inc)))
     out = {}
-    for name, cls, dt in (("port", LammpsScript, torch.float64),
-                          ("jax", JaxScript, jnp.float64)):
-        s = cls(dtype=dt, var_overrides={"n": "3"})
+    for name, cls, dt, kw in (
+            ("port", LammpsScript, torch.float64, {"device": "cpu"}),
+            ("jax", JaxScript, jnp.float64, {})):
+        s = cls(dtype=dt, var_overrides={"n": "3"}, **kw)
         s.file(str(deck))
         out[name] = s._log_lines
     assert out["port"] == out["jax"]
@@ -167,7 +169,7 @@ def test_control_flow_and_var_override_match_jax(tmp_path):
 
 def test_unknown_command_raises():
     with pytest.raises(ScriptError, match="definitely_not_a_command"):
-        LammpsScript().one("definitely_not_a_command 1 2 3")
+        LammpsScript(device="cpu").one("definitely_not_a_command 1 2 3")
 
 
 @pytest.mark.parametrize("line,what", [
@@ -178,7 +180,7 @@ def test_unknown_command_raises():
 ])
 def test_unported_command_raises_naming_it(line, what):
     with pytest.raises(ScriptError, match=what):
-        LammpsScript().one(line)
+        LammpsScript(device="cpu").one(line)
 
 
 def test_cli_runs_a_deck(tmp_path, capsys):

@@ -27,7 +27,8 @@ FIELDS = ("x", "v", "type", "tag", "image", "mask")
 def _port_params(cells):
     """Grid and capacity chosen by the port's setup (the same sizing code
     as the JAX runner, pinned by test_torch_lj_melt)."""
-    sim = lj_melt_sim(cells=cells, t_init=1.44, dtype=torch.float64)
+    sim = lj_melt_sim(cells=cells, t_init=1.44, dtype=torch.float64,
+                      device="cpu")
     sim.setup()
     return sim.nl.params
 
