@@ -50,7 +50,18 @@ checks them on the card:
      P10's launches counted over it; K8 against its plain version (32k f32
      and f64, 1M f32) and against the full-stencil lj kernel, P10 against
      its plain version (1M f32), and the three kernels' times on the same
-     1M inputs.
+     1M inputs;
+ 15. the Newton-half column family, `prof.kernel_iso`, `kernel_writeonce`,
+     `halfv2` and `zchunk` `main` at cells 20 (the labels of
+     prof_kernel_iso.py, prof_kernel_writeonce.py, prof_halfv2.py and
+     prof_zchunk.py), with the launches of every pass of
+     prof/column_half_kernels counted over them (P5's five modes, P8, P2
+     exact and approximate, P11 fwd and fused); each pass against its
+     plain version (32k f32 and f64; P8's forward sums and rc apart and
+     its folded forces against lj_cell_force; noassembly all NaN, and its
+     SASS read for the pair loop), the zb launch shapes against the same
+     twin, each pass's device time per call (torch.profiler), the P5 cost
+     split, and P8 against K8 and lj_cell_force on the same inputs.
 
 Every kernel in the kernel line carries its bound (bound_ms, bound_by:
 the larger of bytes over the HBM rate and operations over the type's
@@ -96,6 +107,13 @@ PROF_REPLACES = {  # K7, K8, P9, P10
     "lj_plane_half": "lammps_kokkos_port_tpu/ops/pallas_pair.py:512",
     "lj_ablate": "benchmarks/prof/prof_sorted_ablate.py:171",
     "lj_plane_half_fwd": "benchmarks/prof/prof_v3_iso.py:97",
+}
+COLUMN_HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_half.cu"
+COLUMN_HALF_REPLACES = {  # P5, P8, P2, P11: the passes of column_half_kernels
+    "iso": "benchmarks/prof/prof_kernel_iso.py:99",
+    "writeonce": "benchmarks/prof/prof_kernel_writeonce.py:120",
+    "halfv2": "benchmarks/prof/prof_halfv2.py:151",
+    "zchunk": "benchmarks/prof/prof_zchunk.py:68",
 }
 # asm_only's 14 unrolled staging blocks of 4 channels: global loads in SASS
 ASM_ONLY_MIN_LDG = 14 * 4
@@ -201,6 +219,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fns: dict, rounds: int = 3, inner: int = 20) -> dict:
+    """Device time per call of each of `fns`, in ms: torch.profiler's
+    summed duration of the device ops of `inner` calls, over `inner`; the
+    fns take turns, `rounds` times, and the median is kept. Unlike an
+    event pair around the calls it holds no gap in which the device waits
+    for the host, which at the 32k grid is as long as a kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(inner):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+            if us <= 0:
+                raise RuntimeError(f"device_ms: the trace of {k} shows no "
+                                   "device time")
+            times[k].append(us / inner / 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype) -> dict:
     """bound_ms / bound_by of a pass doing `pair_ops` operations on each of
     `pairs` unordered pairs and moving `nbytes` (PEAK_* above)."""
@@ -211,17 +259,19 @@ def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype) -> dict:
             "library_ms": LIBRARY_MS}
 
 
-def grid_pairs(ncells, gx, gy, gz, prd, cutsq) -> int:
+def grid_pairs(ncells, gx, gy, gz, prd, cutsq, own_cell=False) -> int:
     """Unordered pairs within the cutoff on a cell-major grid: the plain
-    twins' 27-cell walk without its self lane, counted and halved (padding
-    rows sit far from every row)."""
+    twins' 27-cell walk (with `own_cell`, the own cell only) without its
+    self lane, counted and halved (padding rows sit far from every row)."""
     import torch
 
-    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import stencil
+    from lammps_kokkos_port_tpu_torch.ops import pair_kernels
 
+    kw = {"offsets": [(0, 0, 0)]} if own_cell else {}
     n = 0
     with torch.no_grad():
-        for _, r2, pair_ok, _ in stencil(ncells, gx, gy, gz, prd):
+        for _, r2, pair_ok, _ in pair_kernels.stencil(ncells, gx, gy, gz, prd,
+                                                      **kw):
             ok = r2 < cutsq
             if pair_ok is not None:
                 ok &= pair_ok
@@ -757,26 +807,37 @@ def timed_check(label, kernel, plain, args, rtol, bound) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
-def asm_only_loads() -> dict:
-    """Global loads (LDG) in the SASS of each asm_only instance, read with
-    cuobjdump from the built library: all 14 blocks' staging must be
-    there, or V2 measures nothing."""
+def sass_counts(source, marker: str) -> dict:
+    """{function name: {LDG, LDS, MUFU.RCP: count}} of the functions of
+    `source`'s built library whose mangled name holds `marker`, read with
+    cuobjdump."""
     import re
     import shutil
 
     from lammps_kokkos_port_tpu_torch.ops import cuda_build
-    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [tool, "-sass", str(cuda_build.lib_path(ablate_kernels.SOURCE))],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    loads = {}
+    sass = subprocess.run([tool, "-sass", str(cuda_build.lib_path(source))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split()[0]
-        if "asm_only" in name:
-            kind = "f64" if "asm_only_kernelId" in name else "f32"
-            loads[kind] = len(re.findall(r"\bLDG", part))
+        if marker in name:
+            out[name] = {op: len(re.findall(rf"\b{re.escape(op)}", part))
+                         for op in ("LDG", "LDS", "MUFU.RCP")}
+    return out
+
+
+def asm_only_loads() -> dict:
+    """Global loads (LDG) in the SASS of each asm_only instance, read with
+    cuobjdump from the built library: all 14 blocks' staging must be
+    there, or V2 measures nothing."""
+    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels
+
+    loads = {"f64" if "asm_only_kernelId" in name else "f32": c["LDG"]
+             for name, c in sass_counts(ablate_kernels.SOURCE,
+                                        "asm_only").items()}
     log(f"[build] asm_only SASS global loads (cuobjdump -sass): {loads}, "
         f"at least {ASM_ONLY_MIN_LDG} = 14 blocks x 4 channels")
     if len(loads) != 2 or min(loads.values()) < ASM_ONLY_MIN_LDG:
@@ -953,6 +1014,177 @@ def phase_plane_half(dev) -> dict:
     return out
 
 
+def noassembly_sass() -> dict:
+    """P5 noassembly must walk its NaN stage and never stage from memory:
+    in each of its instances (f32, f64) the SASS holds the pair loop (a
+    reciprocal, MUFU.RCP*, and the shared reads of x, y, z and id) and
+    fewer global loads than any pass of the same type that stages."""
+    from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
+
+    fns = sass_counts(chk.SOURCE, "column_half_")
+    res = {}
+    for kind, tag in (("f32", "If"), ("f64", "Id")):
+        mine = [c for n, c in fns.items() if f"noassembly{tag}" in n]
+        staged = [c["LDG"] for n, c in fns.items()
+                  if f"column_half_kernel{tag}" in n]
+        if len(mine) != 1 or not staged:
+            raise RuntimeError(f"noassembly SASS: functions {list(fns)}")
+        res[kind] = {**mine[0], "LDG of the staging passes": min(staged)}
+        if (mine[0]["MUFU.RCP"] < 1 or mine[0]["LDS"] < 4
+                or mine[0]["LDG"] >= min(staged)):
+            raise RuntimeError(f"noassembly {kind} SASS lacks the pair loop "
+                               f"or stages: {res[kind]}")
+    log(f"[build] lj_column_half noassembly SASS (cuobjdump -sass): {res}")
+    return res
+
+
+def phase_column_half(dev) -> dict:
+    """15. The Newton-half column family: prof.kernel_iso, kernel_writeonce,
+    halfv2 and zchunk `main` at cells 20, with every pass's launches
+    counted over them; then each pass against its twin on jittered 32k
+    planes (f32, f64; P8's forward sums and rc apart, then folded against
+    lj_cell_force; noassembly all NaN, and its SASS), the zb variants
+    against the same twin (f32), the P5 split, and P8 against K8 and
+    lj_cell_force on the same inputs. Returns the kernel line's entries."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import half_kernels as hk
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+    from lammps_kokkos_port_tpu_torch.prof import (
+        column_half_kernels as chk, halfv2, kernel_iso, kernel_writeonce,
+        zchunk)
+    from lammps_kokkos_port_tpu_torch.prof.grid import melt_sim
+
+    sim = melt_sim(20, dev)
+    for fn in chk.PASSES.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = {mod.__name__.rsplit(".", 1)[1]: mod.main(cells=20, device=dev,
+                                                    sim=sim)
+           for mod in (kernel_iso, kernel_writeonce, halfv2, zchunk)}
+    launches = {name: fn.launches for name, fn in chk.PASSES.items()}
+    log(f"[prof-column] kernel_iso, kernel_writeonce, halfv2, zchunk "
+        f".main(cells=20): {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}")
+    # the lattice start's forces cancel to f32 rounding in every pass
+    parity = [res["kernel_iso"]["parity vs full"],
+              *(res["kernel_writeonce"][f"parity f{n}"] for n in "xyz"),
+              *(res["halfv2"][f"v2 zb=2 approx={a} err"]
+                for a in (False, True))]
+    if (min(launches.values()) <= 0 or max(parity) > 1e-3
+            or not all(math.isfinite(v) for r in res.values()
+                       for v in r.values())):
+        raise RuntimeError(f"column-half entry points: launches {launches}, "
+                           f"{res}")
+    sass = noassembly_sass()
+
+    # every pass against its twin (f32, f64) and, in f32, each zb launch
+    # shape against the same twin; then the device time of each
+    ids_free = {"halfv2", "halfv2_approx", "zchunk_fused"}
+    nz = sim.nl.params.ncells[2]
+    shapes = {"halfv2": (2, 4), "halfv2_approx": (2, 4),
+              "zchunk_fwd": (nz, 4, 2, 1), "zchunk_fused": (nz, 2, 1)}
+    out = {}
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        sp = jittered_planes(sim, dtype)
+        args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+        item = sp.buf.element_size()
+        nx, ny, nz = sp.ncells
+        pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
+        own = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1],
+                         own_cell=True)
+        cell_buf = 2 * sp.cap * 13 * 3 * item  # written, then read by the fold
+        rc = nx * ny * 3 * nz * 5 * sp.cc * item
+        timed, res = {}, {}
+        for name, fn in chk.PASSES.items():
+            label = f"{name} 32k {dtype}"
+            got, ref = fn(*args), chk.reference(name, *args)
+            react = chk.SPECS[name][1]["react"]
+            nbytes = sp.cap * (6 if name in ids_free else 7) * item
+            nbytes += {"cell": cell_buf, "target": rc if name == "writeonce"
+                       else 2 * rc}.get(react, 0)
+            if name == "iso_noassembly":
+                torch.cuda.synchronize()
+                if not all(bool(a.isnan().all()) for a in got):
+                    raise RuntimeError(f"{label}: not all NaN")
+                err, bound = 0.0, bound_of(0, 0, nbytes, dtype)
+            elif name == "writeonce":
+                err = max(check_close(f"{label} forward sums", got[:3],
+                                      ref[:3], rtol),
+                          check_close(f"{label} rc", got[3], ref[3], rtol))
+                bound = bound_of(pairs, LJ_PAIR_OPS, nbytes, dtype)
+            else:
+                err = check_close(label, got, ref, rtol)
+                # fused takes each pair of the own cell in both orders
+                bound = bound_of(pairs + own if name == "zchunk_fused"
+                                 else pairs, LJ_FWD_PAIR_OPS if react == "none"
+                                 else LJ_PAIR_OPS, nbytes, dtype)
+            timed[name] = lambda fn=fn: fn(*args)
+            for zb in shapes.get(name, ()) if dtype == torch.float32 else ():
+                err = max(err, check_close(f"{label} zb={zb}",
+                                           fn(*args, zb=zb), ref, rtol))
+                timed[f"{name} zb={zb}"] = lambda fn=fn, zb=zb: fn(*args,
+                                                                   zb=zb)
+            res[name] = {"max_abs_err": err, "plain_ms": cuda_ms(
+                lambda n=name: chk.reference(n, *args), reps=3, warmup=1),
+                **bound}
+        if dtype == torch.float32:
+            # P8 against K8 and the full stencil, on the same inputs
+            full = lj_cell_force(sp.key, sp.ncells, *sp.flat[:3], sp.prd)
+            res["writeonce"]["folded_vs_lj_cell_force"] = check_close(
+                "writeonce folded against lj_cell_force 32k f32",
+                [a.reshape(-1) for a in chk.wo_half_force(*args)],
+                [a.reshape(-1) for a in full], rtol)
+            plane = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
+            timed.update({
+                "P8 pass + torch.roll fold (wo_half_force)":
+                    lambda: chk.wo_half_force(*args),
+                "K8 lj_plane_half_force":
+                    lambda: hk.lj_plane_half_force(*plane),
+                "lj_cell_force": lambda: lj_cell_force(
+                    sp.key, sp.ncells, *sp.flat[:3], sp.prd)})
+        ms = device_ms(timed)
+        log(f"[prof-column] 32k {dtype}, device time per call (ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+        for name, r in res.items():
+            r["ms"] = ms[name]
+            log(f"[kernel] {name} 32k {dtype}: max abs err "
+                f"{r['max_abs_err']:.3e} (rtol {rtol:g}, atol {rtol:g}*max"
+                f"{'; every output NaN' if name == 'iso_noassembly' else ''}"
+                f"), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"{r['pairs']} pairs, bound {r['bound_ms']:.4g} ms "
+                f"({r['bound_by']})")
+            if dtype == torch.float32:
+                out[name] = {"launches": launches[name], "at": "32k f32",
+                             **r, "ms_by_zb": {
+                                 zb: ms[f"{name} zb={zb}"]
+                                 for zb in shapes.get(name, ())}}
+            else:
+                out[name]["f64"] = {k: r[k] for k in ("max_abs_err", "ms",
+                                                      "plain_ms")}
+        if dtype == torch.float32:
+            same = {k: ms[k] for k in (
+                "writeonce", "P8 pass + torch.roll fold (wo_half_force)",
+                "K8 lj_plane_half_force", "lj_cell_force")}
+
+    # the P5 split (f32): noassembly carries full's reaction path, so
+    # full - noassembly is the staging; the TPU script's reading,
+    # noreverse - noassembly, is kept beside it
+    t = {m: out[f"iso_{m}"]["ms"] for m in kernel_iso.MODES}
+    split = {"reaction write + fold (full - redonly)":
+             t["full"] - t["redonly"],
+             "shared reaction sums (redonly - noreverse)":
+             t["redonly"] - t["noreverse"],
+             "staging (full - noassembly)": t["full"] - t["noassembly"],
+             "noreverse - noassembly": t["noreverse"] - t["noassembly"]}
+    log("[prof-column] P5 split at 32k f32 (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    out["iso_full"]["split"] = split
+    out["writeonce"]["same_inputs_ms"] = same
+    out["iso_noassembly"]["sass"] = sass
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -967,7 +1199,8 @@ def main() -> int:
                                                   column_kernels, cuda_build,
                                                   eam_kernels, half_kernels,
                                                   pair_kernels, sortedforce)
-    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels
+    from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
+                                                   column_half_kernels)
     from lammps_kokkos_port_tpu_torch.script import LammpsScript
     from lammps_kokkos_port_tpu_torch.presets import (eam_bulk_cu_sim,
                                                       lj_melt_sim)
@@ -986,7 +1219,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE,
                                   cell_kernels.SOURCE, column_kernels.SOURCE,
-                                  half_kernels.SOURCE, ablate_kernels.SOURCE)
+                                  half_kernels.SOURCE, ablate_kernels.SOURCE,
+                                  column_half_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -1159,9 +1393,10 @@ def main() -> int:
     if abs(row0["epair"] + 6.7733681) > 2e-7 or len(melt["cuda"]) != 2:
         raise RuntimeError(f"melt deck step 0 mismatch: {row0}")
 
-    # 13.-14. the profiling entry points and their kernels
+    # 13.-15. the profiling entry points and their kernels
     prof = phase_sorted_ablate(dev)
     prof.update(phase_plane_half(dev))
+    column = phase_column_half(dev)
 
     print(json.dumps({"kernels": [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1178,6 +1413,10 @@ def main() -> int:
                                ("lj_plane_half", HALF_SOURCE),
                                ("lj_ablate", ABLATE_SOURCE),
                                ("lj_plane_half_fwd", HALF_SOURCE))),
+        *({"name": f"lj_column_half_{name}", "route": "cuda",
+           "source": COLUMN_HALF_SOURCE,
+           "replaces": COLUMN_HALF_REPLACES[name.split("_")[0]], **entry}
+          for name, entry in column.items()),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

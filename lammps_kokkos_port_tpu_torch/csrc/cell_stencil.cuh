@@ -164,4 +164,37 @@ inline Launch launch_shape(int ncell, int cc) {
   return {dim3((ncell + cpb - 1) / cpb), dim3(lanes, cpb)};
 }
 
+// The reaction fold of the Newton-half kernels that keep each cell's 13
+// neighbour blocks apart, rbuf[cell][s - 1][3][cc] for half-stencil block
+// s = 1..13: f[target] += the 13 blocks aimed at it, block s of the cell at
+// target - offset_s (periodic; forces need no shift). A gather, one thread
+// per row, no atomics; launched with launch_shape(ncells, cc).
+template <typename T>
+__global__ void half_fold(const T* __restrict__ rbuf, T* __restrict__ fx,
+                          T* __restrict__ fy, T* __restrict__ fz, int nx,
+                          int ny, int nz, int cc) {
+  const int cell = blockIdx.x * blockDim.y + threadIdx.y;
+  const int lane = threadIdx.x;
+  if (cell >= nx * ny * nz || lane >= cc) return;
+  const int tz = cell % nz;
+  const int t = cell / nz;
+  const int ty = t % ny;
+  const int tx = t / ny;
+  T a0 = T(0), a1 = T(0), a2 = T(0);
+  for (int s = 1; s < kHalfBlocks; ++s) {
+    const int sx = (tx - kHalf[s][0] + nx) % nx;
+    const int sy = (ty - kHalf[s][1] + ny) % ny;
+    const int sz = (tz - kHalf[s][2] + nz) % nz;
+    const int src = (sx * ny + sy) * nz + sz;
+    const T* in = rbuf + (size_t(src) * (kHalfBlocks - 1) + (s - 1)) * 3 * cc;
+    a0 += in[lane];
+    a1 += in[cc + lane];
+    a2 += in[2 * cc + lane];
+  }
+  const int row = cell * cc + lane;
+  fx[row] += a0;
+  fy[row] += a1;
+  fz[row] += a2;
+}
+
 }  // namespace cell_stencil

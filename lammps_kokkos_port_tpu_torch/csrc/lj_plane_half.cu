@@ -32,10 +32,11 @@
 //     with a shared-memory atomicAdd (native in f32 and f64 on sm_90a);
 //   - after the block: the own cell's reactions (s = 0) go to the own rows'
 //     sums; each of the 13 others is written once to rbuf[cell][s-1][3][cc];
-//   - a second small kernel (the fold) adds, for every cell and row, the 13
-//     blocks that target it: rbuf[cell - offset_s][s-1]. It is a gather,
-//     one thread per row, no atomics, and runs right after the first kernel
-//     on the same stream. A kernel and not torch.roll: the 13 rolls of the
+//   - a second small kernel (the fold, cell_stencil.cuh's half_fold) adds,
+//     for every cell and row, the 13 blocks that target it:
+//     rbuf[cell - offset_s][s-1]. It is a gather, one thread per row, no
+//     atomics, and runs right after the first kernel on the same stream. A
+//     kernel and not torch.roll: the 13 rolls of the
 //     JAX wrapper's counterpart would be 39 passes over [nx, ny, nz, cc]
 //     tensors plus the adds.
 // The shared atomics sum each candidate's reactions in an order that varies
@@ -166,37 +167,6 @@ __global__ void lj_plane_half_kernel(
   }
 }
 
-// f[target] += the 13 reaction blocks aimed at it: block s of the cell at
-// target - offset_s (periodic; forces need no shift)
-template <typename T>
-__global__ void lj_plane_half_fold(const T* __restrict__ rbuf,
-                                   T* __restrict__ fx, T* __restrict__ fy,
-                                   T* __restrict__ fz, int nx, int ny,
-                                   int nz, int cc) {
-  const int cell = blockIdx.x * blockDim.y + threadIdx.y;
-  const int lane = threadIdx.x;
-  if (cell >= nx * ny * nz || lane >= cc) return;
-  const int tz = cell % nz;
-  const int t = cell / nz;
-  const int ty = t % ny;
-  const int tx = t / ny;
-  T a0 = T(0), a1 = T(0), a2 = T(0);
-  for (int s = 1; s < kBlocks; ++s) {
-    const int sx = (tx - kHalf[s][0] + nx) % nx;
-    const int sy = (ty - kHalf[s][1] + ny) % ny;
-    const int sz = (tz - kHalf[s][2] + nz) % nz;
-    const int src = (sx * ny + sy) * nz + sz;
-    const T* in = rbuf + (size_t(src) * (kBlocks - 1) + (s - 1)) * 3 * cc;
-    a0 += in[lane];
-    a1 += in[cc + lane];
-    a2 += in[2 * cc + lane];
-  }
-  const int row = cell * cc + lane;
-  fx[row] += a0;
-  fy[row] += a1;
-  fz[row] += a2;
-}
-
 template <typename T, bool React>
 int launch(const void* gx, const void* gy, const void* gz, const void* gi,
            const void* prd, void* fx, void* fy, void* fz, void* rbuf, int nx,
@@ -214,7 +184,7 @@ int launch(const void* gx, const void* gy, const void* gz, const void* gi,
       static_cast<T>(cutsq));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !React) return static_cast<int>(err);
-  lj_plane_half_fold<T><<<L.grid, L.block, 0, st>>>(
+  cell_stencil::half_fold<T><<<L.grid, L.block, 0, st>>>(
       static_cast<const T*>(rbuf), static_cast<T*>(fx), static_cast<T*>(fy),
       static_cast<T*>(fz), nx, ny, nz, cc);
   return static_cast<int>(cudaGetLastError());

@@ -13,6 +13,10 @@ evaluated once. K8 adds the reaction -fij to row j; P10 drops it (its
 forces are wrong by design, a timing ablation, and it is called only by
 `prof.plane_half` and the on-card checks).
 
+`half_walk` is the plain walk of every Newton-half pass of the port: K8
+and P10 here, and the column passes of prof/column_half_kernels (P2, P5,
+P8, P11), which differ in mask, reciprocal and where the reactions go.
+
 The package's dispatch never reaches K8; its callers are the profiling
 entry points (`prof.plane_half`). `lj_plane_half_force` and
 `lj_plane_half_fwd` are the entry points: CPU tensors go to the plain
@@ -39,6 +43,9 @@ HALF = [(0, 0, 0), (0, 0, 1),
         (1, -1, -1), (1, -1, 0), (1, -1, 1),
         (1, 0, -1), (1, 0, 0), (1, 0, 1),
         (1, 1, -1), (1, 1, 0), (1, 1, 1)]
+# the distinct (dx, dy) of HALF, the reaction targets of a column, in the
+# order of benchmarks/prof/prof_kernel_writeonce.py's _TARGETS (:27)
+TARGETS = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 # ids travel as floats: offset ids stay exact up to the type's integer limit
 _ID_LIMIT = {torch.float32: 2 ** 24, torch.float64: 2 ** 53}
@@ -65,50 +72,97 @@ def _flat(ncells, idcap, gx, gy, gz, gi, prd):
     flat = [a.reshape(nx * ny * nz, cc) if a.shape == gx.shape else a
             for a in (gx, gy, gz, gi)]
     check_grid(ncells, flat, prd, min_cells=1)
-    limit = _ID_LIMIT.get(gx.dtype)
-    if limit is not None and gi.numel() + idcap > limit:
-        raise ValueError(f"ids up to {gi.numel()} + idcap {idcap} exceed "
-                         f"{limit}, the last integer {gx.dtype} holds "
-                         "exactly")
+    check_id_limit(gi, idcap)
     return flat
 
 
-def _half_walk(key, ncells, idcap, gx, gy, gz, gi, prd, react: bool):
-    """The plain half-stencil walk: forward sums, and with `react` each
-    block's reactions rolled back onto the candidates' cells."""
+def check_id_limit(gi, idcap):
+    """Float ids offset by `idcap` must stay exact integers of their type."""
+    limit = _ID_LIMIT.get(gi.dtype)
+    if limit is not None and gi.numel() + idcap > limit:
+        raise ValueError(f"ids up to {gi.numel()} + idcap {idcap} exceed "
+                         f"{limit}, the last integer {gi.dtype} holds "
+                         "exactly")
+
+
+def half_walk(key, ncells, fl, prd, idcap=0, *, mask="ids", recip="exact",
+              react="cell"):
+    """The plain half-stencil walk over [nx*ny*nz, cc] channels `fl`
+    (x, y, z, and the float ids where the mask reads them).
+
+    mask: "ids": own_id < cand_id, the candidate ids of the 13 neighbour
+    blocks offset by `idcap` (K8, P5, P10, P8, P11 fwd); "slot": id-free,
+    the self block's candidate slot above the own slot, and 0 < r2 (K1,
+    P2); "dist": 0 < r2 only, so the self block takes both orders of each
+    pair (P11 fused). The id-free masks clamp r2 at 0.25 before the
+    reciprocal, as their TPU bodies do.
+    recip: "exact" 1/r2, or "approx": one Newton step y (2 - r2 y) on the
+    reciprocal, which stands here for the hardware approximation it refines.
+    react: "none": forward sums only; "own": plus the own block's reactions;
+    "cell": plus every block's reactions on the candidates' cells; "target":
+    forward sums and, apart, rc [nx*ny, 3, nz, 5*cc], each block's
+    reactions rolled onto the candidates' z and grouped by (dx, dy) target
+    (TARGETS), the layout of prof_kernel_writeonce.py's rc.
+
+    Returns (fx, fy, fz), each [nx, ny, nz, cc], and rc with "target"."""
     _, lj1, lj2, cutsq = key
-    fl = _flat(ncells, idcap, gx, gy, gz, gi, prd)
     nx, ny, nz = ncells
-    own_i = fl[3].reshape(nx, ny, nz, -1)[..., :, None]
-    out = [torch.zeros(gx.shape, dtype=gx.dtype, device=gx.device)
+    cc = fl[0].shape[-1]
+    dt, dev = fl[0].dtype, fl[0].device
+    out = [torch.zeros((nx, ny, nz, cc), dtype=dt, device=dev)
            for _ in range(3)]
-    walk = stencil(ncells, *fl[:3], prd, (fl[3],), offsets=HALF)
-    for off, (d, r2, _, (ic,)) in zip(HALF, walk):
-        if off != (0, 0, 0):
-            ic = torch.where(ic >= 0, ic + idcap, -1.0)
-        valid = (own_i < ic[..., None, :]) & (r2 < cutsq)
-        r2inv = 1.0 / torch.where(valid, r2, 1.0)
+    if react == "target":
+        rc = torch.zeros((nx, ny, 3, nz, len(TARGETS), cc), dtype=dt,
+                         device=dev)
+    if mask == "ids":
+        own_i = fl[3].reshape(nx, ny, nz, -1)[..., :, None]
+    lane = torch.arange(cc, device=dev)
+    above = lane[None, :] > lane[:, None]  # [own slot, candidate slot]
+    walk = stencil(ncells, *fl[:3], prd, (fl[3],) if mask == "ids" else (),
+                   offsets=HALF)
+    for off, (d, r2, _, cand) in zip(HALF, walk):
+        if mask == "ids":
+            ic = cand[0]
+            if off != (0, 0, 0):
+                ic = torch.where(ic >= 0, ic + idcap, -1.0)
+            valid = (own_i < ic[..., None, :]) & (r2 < cutsq)
+            r2s = torch.where(valid, r2, 1.0)
+        else:
+            valid = (r2 < cutsq) & (r2 > 0)
+            if mask == "slot" and off == (0, 0, 0):
+                valid &= above
+            r2s = torch.clamp(r2, min=0.25)
+        r2inv = 1.0 / r2s
+        if recip == "approx":
+            r2inv = r2inv * (2.0 - r2s * r2inv)
         r6inv = r2inv * r2inv * r2inv
         fpair = torch.where(valid, r6inv * (lj1 * r6inv - lj2) * r2inv, 0.0)
         for dim in range(3):
             fij = d[dim] * fpair  # [nx, ny, nz, cc own, cc candidate]
             out[dim] += fij.sum(-1)
-            if react:
+            if react == "cell" or (react == "own" and off == (0, 0, 0)):
                 # -fij lands on the candidate's cell, c + off
                 out[dim] -= torch.roll(fij.sum(-2), shifts=off,
                                        dims=(0, 1, 2))
+            elif react == "target":
+                rc[:, :, dim, :, TARGETS.index(off[:2])] -= torch.roll(
+                    fij.sum(-2), shifts=off[2], dims=2)
+    if react == "target":
+        return tuple(out), rc.reshape(nx * ny, 3, nz, len(TARGETS) * cc)
     return tuple(out)
 
 
 def lj_plane_half_force_reference(key, ncells, idcap, gx, gy, gz, gi, prd):
     """Plain PyTorch K8: forward sums plus the rolled-back reactions.
     Returns (fx, fy, fz), each [nx, ny, nz, cc]."""
-    return _half_walk(key, ncells, idcap, gx, gy, gz, gi, prd, react=True)
+    fl = _flat(ncells, idcap, gx, gy, gz, gi, prd)
+    return half_walk(key, ncells, fl, prd, idcap, react="cell")
 
 
 def lj_plane_half_fwd_reference(key, ncells, idcap, gx, gy, gz, gi, prd):
     """Plain PyTorch P10: K8's forward half sums only."""
-    return _half_walk(key, ncells, idcap, gx, gy, gz, gi, prd, react=False)
+    fl = _flat(ncells, idcap, gx, gy, gz, gi, prd)
+    return half_walk(key, ncells, fl, prd, idcap, react="none")
 
 
 @functools.cache

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from ..presets import lj_melt_sim
+
 
 @dataclasses.dataclass(frozen=True)
 class SortedPlanes:
@@ -48,6 +50,17 @@ class SortedPlanes:
     def plane(self) -> tuple:
         """(gx, gy, gz, gi), each [nx, ny, nz, cc]."""
         return tuple(self.buf.reshape(4, *self.ncells, self.cc).unbind(0))
+
+
+def melt_sim(cells: int, device):
+    """The scripts' simulation, set up: the bench/in.lj melt of `cells`
+    fcc cells per side, `lj_melt_sim(cells, t_init=1.44, seed=87287,
+    every=20, delay=0, check=False)` in f32 on `device`."""
+    sim = lj_melt_sim(cells=cells, t_init=1.44, seed=87287,
+                      dtype=torch.float32, every=20, delay=0, check=False,
+                      device=device)
+    sim.setup()
+    return sim
 
 
 def sorted_planes(sim, x: torch.Tensor | None = None,

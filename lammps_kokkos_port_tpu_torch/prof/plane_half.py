@@ -33,9 +33,8 @@ import torch
 
 from ..ops.half_kernels import lj_plane_half_force, lj_plane_half_fwd
 from ..ops.pair_kernels import lj_cell_force
-from ..presets import lj_melt_sim
 from ..utils.device import resolve
-from .grid import sorted_planes
+from .grid import melt_sim, sorted_planes
 from .timing import device_line, force_body, say, slope_ms
 
 # the scripts' slope lengths: (k1, k2)
@@ -51,11 +50,7 @@ def main(cells: int = 20, device="cuda", k1: int | None = None,
     dev = resolve(device)
     lines = {20: "32k", 63: "iso"}.get(cells, "both")
     say(device_line(dev))
-    if sim is None:
-        sim = lj_melt_sim(cells=cells, t_init=1.44, seed=87287,
-                          dtype=torch.float32, every=20, delay=0,
-                          check=False, device=dev)
-        sim.setup()
+    sim = melt_sim(cells, dev) if sim is None else sim
     sp = sorted_planes(sim)
     key, prd, cap, cc = sp.key, sp.prd, sp.cap, sp.cc
     say(f"natoms={sp.natoms} ncells={sp.ncells} cc={cc} cap={cap}")

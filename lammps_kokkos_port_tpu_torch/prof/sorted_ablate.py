@@ -35,10 +35,9 @@ import torch
 
 from ..ops.column_kernels import lj_column_force
 from ..ops.pair_kernels import lj_cell_force
-from ..presets import lj_melt_sim
 from ..utils.device import resolve
 from . import ablate_kernels as ak
-from .grid import sorted_planes
+from .grid import melt_sim, sorted_planes
 from .timing import EPS, device_line, force_body, say, slope_ms, sync
 
 
@@ -49,11 +48,7 @@ def main(cells: int = 20, device="cuda", k1: int = 20, k2: int = 60,
     melt of `cells`."""
     dev = resolve(device)
     say(device_line(dev))
-    if sim is None:
-        sim = lj_melt_sim(cells=cells, t_init=1.44, seed=87287,
-                          dtype=torch.float32, every=20, delay=0,
-                          check=False, device=dev)
-        sim.setup()
+    sim = melt_sim(cells, dev) if sim is None else sim
     sp = sorted_planes(sim)
     cc, cap, natoms, key, prd = sp.cc, sp.cap, sp.natoms, sp.key, sp.prd
     say(f"natoms={natoms} ncells={sp.ncells} cc={cc} cap={cap} "

@@ -1,6 +1,7 @@
-"""PyTorch port, the four CUDA kernels of the profiling paths against their
+"""PyTorch port, the CUDA kernels of the profiling paths against their
 plain twins: K7 (csrc/lj_column_full.cu), K8 and P10
-(csrc/lj_plane_half.cu), P9 (csrc/lj_ablate.cu).
+(csrc/lj_plane_half.cu), P9 (csrc/lj_ablate.cu), and the Newton-half
+column passes P2, P5, P8 and P11 (csrc/lj_column_half.cu).
 
 Needs an NVIDIA GPU with nvcc (marker `cuda`; skipped elsewhere). The
 kernels are built from the repository's sources at first use. Run on the
@@ -15,7 +16,9 @@ each with atol rtol*max|f|: kernel and twin make the same cutoff decisions
 (r2 rounded alike) and sum in other orders; K8's reactions are summed by
 shared-memory atomics, in an order that changes from run to run. P9's
 approximate reciprocal (rcp.approx.ftz.f32, at most 1 ulp off) is held to
-the exact twin within the same f32 tolerance.
+the exact twin within the same f32 tolerance; so are P2's and P11's, which
+add one Newton step (in f64 seeded from the f32 approximation, about
+2^-46 relative after the step, inside the f64 tolerance).
 """
 
 import pytest
@@ -25,6 +28,7 @@ from lammps_kokkos_port_tpu_torch.ops import column_kernels, half_kernels
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
+from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
 from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +138,38 @@ def test_ablation_kernels_match_twins(cuda, dtype):
     if dtype == torch.float64:
         with pytest.raises(TypeError, match="float32"):
             ak.pair_only_approx(sp.key, sp.ncells, *live, ids, sp.prd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(chk.PASSES))
+def test_column_half_passes_match_twins(cuda, dtype, name, monkeypatch):
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+    ref = chk.reference(name, *args)
+    _no_plain(monkeypatch, chk, "_plain")
+    fn = chk.PASSES[name]
+    for zb in (None, 1, 2):  # launch shapes: the same results
+        before = fn.launches
+        got = fn(*args, zb=zb)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        if name == "iso_noassembly":
+            assert all(bool(a.isnan().all()) for a in got)
+        elif name == "writeonce":
+            _assert_close(got[:3], ref[:3], dtype)
+            _assert_close(got[3:], ref[3:], dtype)
+        else:
+            _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_column_half_forces_equal_full_stencil(cuda, dtype):
+    """P5 full and batched, P2 and P8 folded: the full stencil's forces."""
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+    f1 = [a.reshape(-1) for a in lj_cell_force(sp.key, sp.ncells,
+                                               *sp.flat[:3], sp.prd)]
+    for forces in (chk.iso_full(*args), chk.iso_batched(*args),
+                   chk.halfv2(*args), chk.halfv2_approx(*args),
+                   chk.wo_half_force(*args)):
+        _assert_close([a.reshape(-1) for a in forces], f1, dtype)
