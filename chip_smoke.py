@@ -12,7 +12,7 @@ checks them on the card:
   2. the lj kernel against its plain PyTorch version on the card, at the
      main path's grids (32k-atom deck and 1M-atom deck), f32 and f64, with
      positions jittered by a seeded +-0.05 so forces are not lattice zeros;
-     max abs error and median CUDA-event times of both;
+     max abs error, the kernel's device time, the plain version's time;
   3. golden step 0: examples/melt in f64 against the reference's log;
   4. the LJ main path: the 32k-atom bench/in.lj melt in f32, setup() +
      run(1000, thermo_every=100), with the kernel's launch count over that
@@ -61,7 +61,29 @@ checks them on the card:
      its folded forces against lj_cell_force; noassembly all NaN, and its
      SASS read for the pair loop), the zb launch shapes against the same
      twin, each pass's device time per call (torch.profiler), the P5 cost
-     split, and P8 against K8 and lj_cell_force on the same inputs.
+     split, and P8 against K8 and lj_cell_force on the same inputs;
+ 16. the last four profiling scripts' paths, `prof.kernel_cc32`,
+     `kernel_v3`, `dynslice` and `zwin_proto` `main` at the 32k melt (the
+     labels of prof_kernel_cc32.py, prof_kernel_v3.py, prof_dynslice.py
+     and prof_zwin_proto.py), with the launches of P3, P4, P6 k1 and k2
+     (P7 is k1's instance), P1 and P12 counted over them; each against its
+     plain version (32k f32 and f64; P12 f32, per element against the sum
+     of the magnitudes of its terms), P3 against lj_cell_force, P6 k1 and
+     k2 against each other and K7 and with a pad in the cutoff, P1 in both
+     modes at G = 512 and G = 128, and each kernel's device time per call.
+
+The `[rank]` lines order the kernels for redesign: the decks' kernels by
+launches per step times device time above the bound at each deck's size,
+the profiling-only kernels apart, one call each.
+
+The entry points' lines (phases 13-16) are slopes of CUDA-graph replays
+(prof/timing.slope_ms), device time as the scripts' lax.scan gives it.
+Every kernel timed in phases 2-16 is timed by its device time per call
+(`device_ms`, torch.profiler), one clock for every entry of the kernel
+line: its `ms` and `device_ms` are that time. (A single call's CUDA-event
+time would also hold the host's gap before the launch, as long as a kernel
+at 32k.) The plain versions, many kernels each, keep CUDA-event medians
+(`plain_ms`).
 
 Every kernel in the kernel line carries its bound (bound_ms, bound_by:
 the larger of bytes over the HBM rate and operations over the type's
@@ -109,12 +131,29 @@ PROF_REPLACES = {  # K7, K8, P9, P10
     "lj_plane_half_fwd": "benchmarks/prof/prof_v3_iso.py:97",
 }
 COLUMN_HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_half.cu"
-COLUMN_HALF_REPLACES = {  # P5, P8, P2, P11: the passes of column_half_kernels
+COLUMN_HALF_REPLACES = {  # P5, P8, P2, P11, P3: column_half_kernels' passes
     "iso": "benchmarks/prof/prof_kernel_iso.py:99",
     "writeonce": "benchmarks/prof/prof_kernel_writeonce.py:120",
     "halfv2": "benchmarks/prof/prof_halfv2.py:151",
     "zchunk": "benchmarks/prof/prof_zchunk.py:68",
+    "cc32": "benchmarks/prof/prof_kernel_cc32.py:182",
 }
+DYNSLICE_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/dynslice.cu"
+ZWIN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/zwin_proto.cu"
+# phase 16's kernels: (name in the line, source, the pallas_call it replaces)
+LAST_SITES = {
+    "lj_column_half_cc32_half": (COLUMN_HALF_SOURCE,
+                                 "benchmarks/prof/prof_kernel_cc32.py:182"),
+    "lj_ablate_pair512": (ABLATE_SOURCE,
+                          "benchmarks/prof/prof_kernel_cc32.py:239"),
+    "lj_column_v3_k1": (COLUMN_SOURCE,
+                        "benchmarks/prof/prof_kernel_v3.py:187"),
+    "lj_column_v3_k2": (COLUMN_SOURCE,
+                        "benchmarks/prof/prof_kernel_v3.py:187"),
+    "dynslice": (DYNSLICE_SOURCE, "benchmarks/prof/prof_dynslice.py:52"),
+    "zwin_proto": (ZWIN_SOURCE, "benchmarks/prof/prof_zwin_proto.py:108"),
+}
+P7_SITE = "benchmarks/prof/prof_kernel_v3.py:205"  # k1 again: k1's instance
 # asm_only's 14 unrolled staging blocks of 4 channels: global loads in SASS
 ASM_ONLY_MIN_LDG = 14 * 4
 SEED = 87287
@@ -219,12 +258,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# traces of one round before device_ms gives up: torch.profiler can return
+# a trace without the device events of kernels launched through ctypes
+# (seen on an H100 for P9 asm_only, P5 noreverse, and twice in a row for
+# P1's 2-microsecond kernel)
+TRACE_ATTEMPTS = 5
+
+
 def device_ms(fns: dict, rounds: int = 3, inner: int = 20) -> dict:
     """Device time per call of each of `fns`, in ms: torch.profiler's
     summed duration of the device ops of `inner` calls, over `inner`; the
     fns take turns, `rounds` times, and the median is kept. Unlike an
     event pair around the calls it holds no gap in which the device waits
-    for the host, which at the 32k grid is as long as a kernel."""
+    for the host, which at the 32k grid is as long as a kernel. A round
+    whose trace holds no device op is traced again (TRACE_ATTEMPTS)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -235,18 +282,28 @@ def device_ms(fns: dict, rounds: int = 3, inner: int = 20) -> dict:
     times = {k: [] for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(inner):
-                    fn()
-                torch.cuda.synchronize()
-            us = sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
-            if us <= 0:
+            for attempt in range(TRACE_ATTEMPTS):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(inner):
+                        fn()
+                    torch.cuda.synchronize()
+                us = sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+                if us > 0:
+                    break
+                log(f"[device_ms] the trace of {k} shows no device time "
+                    f"(attempt {attempt + 1} of {TRACE_ATTEMPTS})")
+            else:
                 raise RuntimeError(f"device_ms: the trace of {k} shows no "
                                    "device time")
             times[k].append(us / inner / 1e3)
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def one_device_ms(fn) -> float:
+    """device_ms of one function."""
+    return device_ms({"fn": fn})["fn"]
 
 
 def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype) -> dict:
@@ -312,9 +369,9 @@ def check_close(label: str, got, ref, rtol: float) -> float:
     abs error."""
     import torch
 
-    got = torch.stack([a.reshape(-1) for a in got]) if isinstance(
+    got = torch.cat([a.reshape(-1) for a in got]) if isinstance(
         got, (tuple, list)) else got
-    ref = torch.stack([a.reshape(-1) for a in ref]) if isinstance(
+    ref = torch.cat([a.reshape(-1) for a in ref]) if isinstance(
         ref, (tuple, list)) else ref
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
@@ -361,7 +418,7 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
     bad = int((err > rtol * fmax + rtol * ref.abs()).sum())
     max_abs = err.max().item()
     max_rel = (err / ref.abs().clamp_min(1e-3 * fmax)).max().item()
-    ms = cuda_ms(lambda: lj_cell_force(*args), reps=20)
+    dev_ms = one_device_ms(lambda: lj_cell_force(*args))
     plain_ms = cuda_ms(lambda: lj_cell_force_reference(*args), reps=5,
                        warmup=1)
     rows = p.total_cells * p.cell_cap
@@ -370,13 +427,15 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
     log(f"[kernel] {label}: grid {p.ncells} x cc {p.cell_cap} "
         f"({rows} rows), max|f| {fmax:.6g}, "
         f"max abs err {max_abs:.3e}, max rel err {max_rel:.3e} "
-        f"(rtol {rtol:g}, atol {rtol:g}*max|f|), kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {bound['pairs']} pairs in the cutoff, "
-        f"bound {bound['bound_ms']:.4g} ms ({bound['bound_by']})")
+        f"(rtol {rtol:g}, atol {rtol:g}*max|f|), device {dev_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, "
+        f"{bound['pairs']} pairs in the cutoff, bound "
+        f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
     if bad:
         raise RuntimeError(f"{label}: {bad} force components out of "
                            "tolerance")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": max_abs, "ms": dev_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def check_run(sim, rows, label: str, bound: float = 0.02) -> None:
@@ -487,19 +546,20 @@ def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
         err = (got - ref).abs()
         bad = int((err > rtol * vmax + rtol * ref.abs()).sum())
         max_abs = err.max().item()
-        ms = cuda_ms(lambda: fn(*args), reps=20)
+        dev_ms = one_device_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
         b = bounds[name]
         log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
             f"({rows} rows), max|value| {vmax:.6g}, "
             f"max abs err {max_abs:.3e} (rtol {rtol:g}, atol {rtol:g}*max),"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {pairs} pairs "
-            f"in the cutoff, bound {b['bound_ms']:.4g} ms ({b['bound_by']})")
+            f" device {dev_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {pairs} pairs in the cutoff, bound "
+            f"{b['bound_ms']:.4g} ms ({b['bound_by']})")
         if bad:
             raise RuntimeError(f"{label} {name}: {bad} values out of "
                                "tolerance")
-        out[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                     **b}
+        out[name] = {"max_abs_err": max_abs, "ms": dev_ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms, **b}
     return out
 
 
@@ -683,7 +743,7 @@ def cell_kernel_vs_plain(sim, dtype, label: str, jitter: float) -> dict:
     err = (f - ref).abs()
     bad = int((err > rtol * fmax + rtol * ref.abs()).sum())
     max_abs = err.max().item()
-    ms = cuda_ms(lambda: lj_cell_dense(*args), reps=20)
+    dev_ms = one_device_ms(lambda: lj_cell_dense(*args))
     plain_ms = cuda_ms(lambda: lj_cell_dense_reference(*args), reps=3,
                        warmup=1)
     p = cl.params
@@ -694,13 +754,14 @@ def cell_kernel_vs_plain(sim, dtype, label: str, jitter: float) -> dict:
     log(f"[cell kernel] {label}: grid {p.ncells} x cc {p.cell_cap} "
         f"({p.total_cells * p.cell_cap} lanes, {st.nlocal} atoms), max|f| "
         f"{fmax:.6g}, max abs err {max_abs:.3e} (rtol {rtol:g}, atol "
-        f"{rtol:g}*max|f|), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{bound['pairs']} pairs in the cutoff, bound "
-        f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
+        f"{rtol:g}*max|f|), device {dev_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {bound['pairs']} pairs in the cutoff, "
+        f"bound {bound['bound_ms']:.4g} ms ({bound['bound_by']})")
     if bad or fmax <= 0:
         raise RuntimeError(f"{label}: {bad} force components out of "
                            "tolerance (or all zero)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": max_abs, "ms": dev_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def host_ms(fn, reps: int = 10) -> float:
@@ -796,15 +857,17 @@ def jittered_planes(sim, dtype):
 
 def timed_check(label, kernel, plain, args, rtol, bound) -> dict:
     """A kernel against its plain version on `args`: the max abs error
-    (check_close), median CUDA-event times of both, and `bound`."""
+    (check_close), the kernel's device time, the plain version's median
+    CUDA-event time, and `bound`."""
     err = check_close(label, kernel(*args), plain(*args), rtol)
-    ms = cuda_ms(lambda: kernel(*args), reps=20)
+    dev_ms = one_device_ms(lambda: kernel(*args))
     plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
     log(f"[kernel] {label}: max abs err {err:.3e} (rtol {rtol:g}, atol "
-        f"{rtol:g}*max), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{bound['pairs']} pairs, bound {bound['bound_ms']:.4g} ms "
-        f"({bound['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+        f"{rtol:g}*max), device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound['pairs']} pairs, bound "
+        f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
+    return {"max_abs_err": err, "ms": dev_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def sass_counts(source, marker: str) -> dict:
@@ -872,7 +935,8 @@ def phase_sorted_ablate(dev) -> dict:
     res = sorted_ablate.main(cells=20, device=dev, sim=sim)
     launches = {k: fn.launches for k, fn in counted.items()}
     log(f"[prof-ablate] sorted_ablate.main(cells=20): "
-        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}, lines (ms;"
+        f" step eager, the rest graph replays) {res}")
     if min(launches.values()) <= 0 or not all(
             math.isfinite(v) for v in res.values()):
         raise RuntimeError(f"sorted_ablate: launches {launches}, {res}")
@@ -931,7 +995,7 @@ def phase_sorted_ablate(dev) -> dict:
         v["launches"] = launches[name]
     out["lj_ablate"] = {
         **{k: variants["pair_only"][k] for k in
-           ("ms", "plain_ms", "pairs", "bound_ms", "bound_by",
+           ("ms", "device_ms", "plain_ms", "pairs", "bound_ms", "bound_by",
             "library_ms")},
         "launches": sum(v["launches"] for v in variants.values()),
         "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
@@ -967,7 +1031,8 @@ def phase_plane_half(dev) -> dict:
            for cells, sim in sims.items()}
     launches = {k: fn.launches for k, fn in counted.items()}
     log(f"[prof-plane] plane_half.main(cells=20), (cells=63): "
-        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}, lines (ms, "
+        f"graph replays) {res}")
     # the lattice start's forces cancel to f32 rounding in both kernels
     if (min(launches.values()) <= 0
             or max(r["parity col vs v3"] for r in res.values()) > 1e-3
@@ -993,11 +1058,12 @@ def phase_plane_half(dev) -> dict:
                           [a.reshape(-1) for a in
                            hk.lj_plane_half_force(*args)],
                           [a.reshape(-1) for a in full], rtol)
-        full_ms = cuda_ms(lambda: lj_cell_force(
-            sp.key, sp.ncells, *sp.flat[:3], sp.prd), reps=20)
-        log(f"[prof-plane] {size} {dtype}: K8 {k8['ms']:.4f} ms against "
-            f"the full-stencil lj_cell_force {full_ms:.4f} ms on the same "
-            f"inputs ({k8['ms'] / full_ms:.3f}x), max abs difference "
+        full_dev = one_device_ms(lambda: lj_cell_force(
+            sp.key, sp.ncells, *sp.flat[:3], sp.prd))
+        log(f"[prof-plane] {size} {dtype}: K8 device time "
+            f"{k8['device_ms']:.4f} ms against the full-stencil "
+            f"lj_cell_force {full_dev:.4f} ms on the same inputs "
+            f"({k8['device_ms'] / full_dev:.3f}x); max abs difference "
             f"{err:.3e}")
         if cells == 63:
             fwd = timed_check(f"P10 lj_plane_half_fwd 1M {dtype}",
@@ -1007,7 +1073,7 @@ def phase_plane_half(dev) -> dict:
                                        dtype))
             out["lj_plane_half"] = {"launches": launches["lj_plane_half"],
                                     "at": "1M f32", **k8,
-                                    "lj_cell_force_ms": full_ms}
+                                    "lj_cell_force_device_ms": full_dev}
             out["lj_plane_half_fwd"] = {
                 "launches": launches["lj_plane_half_fwd"], "at": "1M f32",
                 **fwd}
@@ -1056,16 +1122,18 @@ def phase_column_half(dev) -> dict:
     from lammps_kokkos_port_tpu_torch.prof.grid import melt_sim
 
     sim = melt_sim(20, dev)
-    for fn in chk.PASSES.values():
+    # P3 (cc32_half) belongs to phase 16's path
+    passes = {n: fn for n, fn in chk.PASSES.items() if n != "cc32_half"}
+    for fn in passes.values():
         fn.launches = 0
     t0 = time.perf_counter()
     res = {mod.__name__.rsplit(".", 1)[1]: mod.main(cells=20, device=dev,
                                                     sim=sim)
            for mod in (kernel_iso, kernel_writeonce, halfv2, zchunk)}
-    launches = {name: fn.launches for name, fn in chk.PASSES.items()}
+    launches = {name: fn.launches for name, fn in passes.items()}
     log(f"[prof-column] kernel_iso, kernel_writeonce, halfv2, zchunk "
         f".main(cells=20): {time.perf_counter() - t0:.1f} s, launches "
-        f"{launches}")
+        f"{launches}, lines (ms, graph replays) {res}")
     # the lattice start's forces cancel to f32 rounding in every pass
     parity = [res["kernel_iso"]["parity vs full"],
               *(res["kernel_writeonce"][f"parity f{n}"] for n in "xyz"),
@@ -1096,7 +1164,7 @@ def phase_column_half(dev) -> dict:
         cell_buf = 2 * sp.cap * 13 * 3 * item  # written, then read by the fold
         rc = nx * ny * 3 * nz * 5 * sp.cc * item
         timed, res = {}, {}
-        for name, fn in chk.PASSES.items():
+        for name, fn in passes.items():
             label = f"{name} 32k {dtype}"
             got, ref = fn(*args), chk.reference(name, *args)
             react = chk.SPECS[name][1]["react"]
@@ -1147,11 +1215,11 @@ def phase_column_half(dev) -> dict:
         log(f"[prof-column] 32k {dtype}, device time per call (ms): "
             + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
         for name, r in res.items():
-            r["ms"] = ms[name]
+            r["ms"] = r["device_ms"] = ms[name]
             log(f"[kernel] {name} 32k {dtype}: max abs err "
                 f"{r['max_abs_err']:.3e} (rtol {rtol:g}, atol {rtol:g}*max"
                 f"{'; every output NaN' if name == 'iso_noassembly' else ''}"
-                f"), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"), device {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"{r['pairs']} pairs, bound {r['bound_ms']:.4g} ms "
                 f"({r['bound_by']})")
             if dtype == torch.float32:
@@ -1161,7 +1229,7 @@ def phase_column_half(dev) -> dict:
                                  for zb in shapes.get(name, ())}}
             else:
                 out[name]["f64"] = {k: r[k] for k in ("max_abs_err", "ms",
-                                                      "plain_ms")}
+                                                      "device_ms", "plain_ms")}
         if dtype == torch.float32:
             same = {k: ms[k] for k in (
                 "writeonce", "P8 pass + torch.roll fold (wo_half_force)",
@@ -1184,6 +1252,260 @@ def phase_column_half(dev) -> dict:
     out["iso_noassembly"]["sass"] = sass
     return out
 
+def phase_last_sites(dev) -> dict:
+    """16. prof.kernel_cc32, kernel_v3, dynslice and zwin_proto `main` at
+    the 32k melt (cells 20), with the launches of P3, P4, P6 k1 (P7's
+    instance too), P6 k2, P1 and P12 counted over them; then each against
+    its plain version: P3, P6 k1 and k2 on jittered 32k planes (f32, f64;
+    P3 also against lj_cell_force, k1 and k2 against each other and K7,
+    and with a pad inside the cutoff of a real row, which k1 and k2 must
+    skip and K7 takes), P4 on inputs where its pair math is live (as phase
+    13 holds P9), P1 in both modes at G = 512 and 128 (f32, f64), P12 on
+    the script's inputs (f32; each element within 1e-4 of the sum of the
+    magnitudes of its terms, and a planted fault must fail that check),
+    and the device time of each. Returns the kernel line's entries."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import column_kernels as ck
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+    from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
+    from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
+    from lammps_kokkos_port_tpu_torch.prof import dynslice_kernels as dk
+    from lammps_kokkos_port_tpu_torch.prof import v3_kernels as v3k
+    from lammps_kokkos_port_tpu_torch.prof import zwin_kernels as zk
+    from lammps_kokkos_port_tpu_torch.prof import (dynslice, kernel_cc32,
+                                                   kernel_v3, zwin_proto)
+    from lammps_kokkos_port_tpu_torch.prof.grid import melt_sim
+
+    sim = melt_sim(20, dev)
+    counted = {"lj_column_half_cc32_half": chk.cc32_half,
+               "lj_ablate_pair512": ak.pair_only,
+               "lj_column_v3_k1": v3k.v3_k1, "lj_column_v3_k2": v3k.v3_k2,
+               "dynslice": dk.dynslice, "zwin_proto": zk.zwin_proto}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = {"kernel_cc32": kernel_cc32.main(cells=20, device=dev, sim=sim),
+           "kernel_v3": kernel_v3.main(cells=20, device=dev, sim=sim),
+           "dynslice": dynslice.main(device=dev),
+           "zwin_proto": zwin_proto.main(cells=20, device=dev, sim=sim)}
+    launches = {k: fn.launches for k, fn in counted.items()}
+    log(f"[prof-last] kernel_cc32, kernel_v3, dynslice, zwin_proto "
+        f".main(cells=20): {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}, lines (ms, graph replays) {res}")
+    if min(launches.values()) <= 0 or not all(
+            math.isfinite(v) for r in res.values() for v in r.values()):
+        raise RuntimeError(f"last sites: launches {launches}, {res}")
+
+    out = {name: {"launches": n, "at": "32k f32"}
+           for name, n in launches.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        sp = jittered_planes(sim, dtype)
+        item = sp.buf.element_size()
+        pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
+        col = (sp.key, sp.ncells, *sp.col, sp.prd)
+        half = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+        nbytes = sp.cap * 7 * item
+        checked, timed, plain = {}, {}, {}
+        # P3, against its twin and the full stencil
+        full = [a.reshape(-1) for a in lj_cell_force(sp.key, sp.ncells,
+                                                     *sp.flat[:3], sp.prd)]
+        got = chk.cc32_half(*half)
+        checked["lj_column_half_cc32_half"] = (max(
+            check_close(f"P3 cc32_half 32k {dtype}", got,
+                        chk.reference("cc32_half", *half), rtol),
+            check_close(f"P3 against lj_cell_force 32k {dtype}",
+                        [a.reshape(-1) for a in got], full, rtol)),
+            bound_of(pairs, LJ_PAIR_OPS, nbytes + 2 * sp.cap * 13 * 3 * item,
+                     dtype))
+        timed["lj_column_half_cc32_half"] = lambda: chk.cc32_half(*half)
+        plain["lj_column_half_cc32_half"] = lambda: chk.reference(
+            "cc32_half", *half)
+        # P6 k1 and k2: their twins, each other, K7
+        k7 = ck.lj_column_force(*col)
+        k1 = v3k.v3_k1(*col)
+        for name, fn, grouped in (("lj_column_v3_k1", v3k.v3_k1, False),
+                                  ("lj_column_v3_k2", v3k.v3_k2, True)):
+            got = fn(*col)
+            checked[name] = (max(
+                check_close(f"P6 {name} 32k {dtype}", got,
+                            v3k.v3_reference(*col, grouped=grouped), rtol),
+                check_close(f"P6 {name} against K7 32k {dtype}", got, k7,
+                            rtol),
+                check_close(f"P6 {name} against k1 32k {dtype}", got, k1,
+                            rtol)),
+                bound_of(pairs, LJ_PAIR_OPS, nbytes, dtype))
+            timed[name] = lambda fn=fn: fn(*col)
+            plain[name] = lambda g=grouped: v3k.v3_reference(*col, grouped=g)
+        # P6's candidate mask (cand_id >= 0), which the melt cannot show
+        # (its pads die by distance): a cell's second row made a pad 0.84
+        # from its first; k1 and k2 must skip it, K7 takes it
+        pcol = tuple(a.clone() for a in sp.col)
+        flat = [a.reshape(-1) for a in pcol]
+        real = int(torch.nonzero(flat[3] >= 0)[0])
+        flat[3][real + 1] = -1.0
+        for d in range(3):
+            flat[d][real + 1] = flat[d][real] + (0.84 if d == 0 else 0.0)
+        pargs = (sp.key, sp.ncells, *pcol, sp.prd)
+        k7_pad = ck.lj_column_force(*pargs)[0].reshape(-1)[real].item()
+        for name, fn, grouped in (("lj_column_v3_k1", v3k.v3_k1, False),
+                                  ("lj_column_v3_k2", v3k.v3_k2, True)):
+            got = fn(*pargs)
+            err = check_close(f"P6 {name} with a live pad {dtype}", got,
+                              v3k.v3_reference(*pargs, grouped=grouped), rtol)
+            fx = got[0].reshape(-1)[real].item()
+            log(f"[prof-last] {name} {dtype} with a pad 0.84 from a real "
+                f"row: fx {fx:.6g} there (K7, which takes the pad: "
+                f"{k7_pad:.6g}), max abs err {err:.3e}")
+            if abs(fx - k7_pad) <= 1.0:
+                raise RuntimeError(f"{name}: the pad acted on a real row")
+            checked[name] = (max(checked[name][0], err), checked[name][1])
+        # P4: 512 lanes, on live inputs and the melt's (its timed inputs)
+        gi = sp.col[3]
+        live = tuple(3.0 + torch.where(u < 0.5, -1.0, 1.0) * (0.8 + 0.8 * u)
+                     for u in (torch.rand(a.shape, generator=gen, device=dev,
+                                          dtype=dtype) for a in sp.col[:3]))
+        ids = torch.remainder(torch.arange(gi.numel(), device=dev), 4).to(
+            dtype).reshape(gi.shape) - 1
+        d2 = sum((a - ak.FILL) ** 2 for a in sp.flat[:3]).reshape(-1)
+        keep = int(((sp.ids >= 0) & (sp.ids < ak.FILL)
+                    & (d2 < sp.key[-1])).sum())
+        melt = (sp.key, sp.ncells, *sp.col, sp.prd)
+        checked["lj_ablate_pair512"] = (max(
+            check_close(f"P4 pair_only lanes=512 live {dtype}",
+                        ak.pair_only(sp.key, sp.ncells, *live, ids, sp.prd,
+                                     lanes=512),
+                        ak.pair_only_reference(sp.key, sp.ncells, *live, ids,
+                                               sp.prd, lanes=512), rtol),
+            check_close(f"P4 pair_only lanes=512 32k {dtype}",
+                        ak.pair_only(*melt, lanes=512),
+                        ak.pair_only_reference(*melt, lanes=512), rtol)),
+            bound_of(keep * 512, LJ_FWD_PAIR_OPS, nbytes, dtype))
+        timed["lj_ablate_pair512"] = lambda: ak.pair_only(*melt, lanes=512)
+        plain["lj_ablate_pair512"] = lambda: ak.pair_only_reference(
+            *melt, lanes=512)
+        # P1: both modes at both G
+        starts = dynslice.script_starts(dev)
+        errs = []
+        for g in (dynslice.G, dynslice.W):
+            ext = torch.randn((dynslice.NCOL, g), generator=gen, device=dev,
+                              dtype=dtype)
+            for mode in dk.MODES:
+                errs.append(check_close(
+                    f"P1 dynslice {mode} G={g} {dtype}",
+                    dk.dynslice(starts, ext, dynslice.W, mode),
+                    dk.dynslice_reference(starts, ext, dynslice.W, mode),
+                    rtol))
+                timed[f"dynslice {mode} G={g}"] = (
+                    lambda e=ext, m=mode: dk.dynslice(starts, e, dynslice.W,
+                                                      m))
+        ext = torch.ones((dynslice.NCOL, dynslice.G), device=dev, dtype=dtype)
+        nch = starts.shape[1]
+        p1_bytes = (starts.numel() * 4 + ext.numel() * item
+                    + dynslice.NCOL * dynslice.W * item)
+        checked["dynslice"] = (max(errs), {
+            **bound_of(dynslice.NCOL * dynslice.W * (nch + 1), 1, p1_bytes,
+                       dtype), "pairs": None})
+        timed["dynslice"] = lambda: dk.dynslice(starts, ext, dynslice.W)
+        plain["dynslice"] = lambda: dk.dynslice_reference(starts, ext,
+                                                          dynslice.W)
+        # P12 (f32 only: the approximate reciprocal)
+        if dtype == torch.float32:
+            zin = zk.zwin_inputs(device=dev)
+            zpairs = zk.pairs_in_cutoff(*zin)
+            zbytes = sum(a.numel() * a.element_size() for a in zin) * 2 - (
+                zin[-1].numel() * 4)
+            zref = zk.zwin_reference(*zin)
+            zmax = max(a.abs().max().item() for a in zref)
+            # uniform random points: a few near-coincident pairs give forces
+            # up to r^-13, so an atol scaled by max|ref| would pass a wrong
+            # window; each element is held to the sum of the magnitudes of
+            # its own terms instead, and a planted fault (every window start
+            # moved by one) must fail that check
+            scale = zk.zwin_reference(*zin, magnitude=True)
+            zgot = zk.zwin_proto(*zin)
+            moved = zk.zwin_proto(*zin[:-1], zin[-1] + 1)
+            scaled = zk.max_scaled_error(zgot, zref, scale)
+            planted = zk.max_scaled_error(moved, zref, scale)
+            zerr = max((a - b).abs().max().item() for a, b in zip(zgot, zref))
+            log(f"[prof-last] P12 on the script's inputs: {zpairs} pairs in "
+                f"the cutoff, max|ref| {zmax:.6g}, max abs err {zerr:.3e}; "
+                f"max |err| / (sum of |terms|) {scaled:.3e} (limit 1e-4), "
+                f"with the starts moved by one {planted:.3g} (must exceed "
+                f"0.1)")
+            if not (all(bool(torch.isfinite(a).all()) for a in zgot)
+                    and scaled <= 1e-4 and planted > 0.1):
+                raise RuntimeError(f"P12 zwin_proto f32: scaled error "
+                                   f"{scaled}, planted fault {planted}")
+            checked["zwin_proto"] = (zerr, bound_of(zpairs, LJ_PAIR_OPS,
+                                                    zbytes, dtype))
+            timed["zwin_proto"] = lambda: zk.zwin_proto(*zin)
+            plain["zwin_proto"] = lambda: zk.zwin_reference(*zin)
+            timed["lj_cell_force"] = lambda: lj_cell_force(
+                sp.key, sp.ncells, *sp.flat[:3], sp.prd)
+        ms = device_ms(timed)
+        log(f"[prof-last] 32k {dtype}, device time per call (ms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+        for name, (err, bound) in checked.items():
+            r = {"max_abs_err": err, "ms": ms[name], "device_ms": ms[name],
+                 "plain_ms": cuda_ms(plain[name], reps=3, warmup=1), **bound}
+            limit = ("1e-4 of each element's sum of |terms|"
+                     if name == "zwin_proto" else f"rtol {rtol:g}, atol "
+                     "rtol*max")
+            log(f"[kernel] {name} 32k {dtype}: max abs err {err:.3e} "
+                f"({limit}), device {r['device_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, {bound['pairs']} pairs, bound "
+                f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
+            if dtype == torch.float32:
+                out[name].update(r)
+            else:
+                out[name]["f64"] = {k: r[k] for k in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms")}
+        if dtype == torch.float32:
+            out["dynslice"]["ms_by_shape"] = {
+                k: v for k, v in ms.items() if k.startswith("dynslice ")}
+            out["zwin_proto"]["lj_cell_force_device_ms"] = ms["lj_cell_force"]
+            out["zwin_proto"]["max_abs_ref"] = zmax
+            out["zwin_proto"]["max_scaled_err"] = scaled
+    out["dynslice"]["library_note"] = (
+        "no single PyTorch call: a gather, a sum over the windows and a "
+        "scale")
+    out["lj_column_v3_k1"]["also_replaces"] = [P7_SITE]
+    return out
+
+
+def rank(kernels: list, decks: list) -> None:
+    """The redesign queue's order, as two lines. First any kernel slower
+    than its library call. `[rank]`: the decks' kernels, each by its
+    launches per step of a deck's run times its device time above its bound
+    at that deck's size, summed over one step of each deck it serves
+    (`decks`: (kernel, deck, launches per step, entry at that size)).
+    `[rank-prof]`: the kernels only the profiling entry points run, one
+    call each (device_ms - bound_ms at the size of their entry): their
+    launch counts follow the timers' iteration counts, not any traffic."""
+    slower = [e["name"] for e in kernels if e["library_ms"] is not None
+              and e["device_ms"] > e["library_ms"]]
+    log(f"[rank] slower than their library call: {slower or 'none'} "
+        f"({sum(e['library_ms'] is None for e in kernels)} of "
+        f"{len(kernels)} kernels have no library call)")
+    per = {}
+    for name, deck, per_step, e in decks:
+        per.setdefault(name, []).append(
+            (deck, per_step, per_step * (e["device_ms"] - e["bound_ms"])))
+    log("[rank] decks' kernels, launches per step x (device_ms - bound_ms)"
+        " at the deck's size, ms per step of each deck: " + "; ".join(
+            f"{name} {sum(t[2] for t in terms):.4f} (" + ", ".join(
+                f"{deck} {n:.3f} x -> {v:.4f}" for deck, n, v in terms) + ")"
+            for name, terms in sorted(
+                per.items(), key=lambda kv: -sum(t[2] for t in kv[1]))))
+    prof = sorted(((e["device_ms"] - e["bound_ms"], e["name"],
+                    e.get("at", "32k f32")) for e in kernels
+                   if e["name"] not in per), reverse=True)
+    log("[rank-prof] profiling-only kernels, one call each, device_ms - "
+        "bound_ms, ms: " + ", ".join(f"{name} {v:.4f} ({at})"
+                                     for v, name, at in prof))
+
 
 def main() -> int:
     import torch
@@ -1200,7 +1522,9 @@ def main() -> int:
                                                   eam_kernels, half_kernels,
                                                   pair_kernels, sortedforce)
     from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
-                                                   column_half_kernels)
+                                                   column_half_kernels,
+                                                   dynslice_kernels,
+                                                   zwin_kernels)
     from lammps_kokkos_port_tpu_torch.script import LammpsScript
     from lammps_kokkos_port_tpu_torch.presets import (eam_bulk_cu_sim,
                                                       lj_melt_sim)
@@ -1220,7 +1544,9 @@ def main() -> int:
     build_logs = cuda_build.build(pair_kernels.SOURCE, eam_kernels.SOURCE,
                                   cell_kernels.SOURCE, column_kernels.SOURCE,
                                   half_kernels.SOURCE, ablate_kernels.SOURCE,
-                                  column_half_kernels.SOURCE)
+                                  column_half_kernels.SOURCE,
+                                  dynslice_kernels.SOURCE,
+                                  zwin_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -1240,7 +1566,7 @@ def main() -> int:
     log(f"[setup] 32k + 1M decks {time.perf_counter() - t0:.1f} s")
     main_cell = kernel_vs_plain(sim32, torch.float32, "32k f32")
     kernel_vs_plain(sim32, torch.float64, "32k f64")
-    kernel_vs_plain(sim1m, torch.float32, "1M f32")
+    main_cell_1m = kernel_vs_plain(sim1m, torch.float32, "1M f32")
     kernel_vs_plain(sim1m, torch.float64, "1M f64")
 
     # 3. golden step 0 (examples/melt/log.8Apr21.melt.g++.1, f64)
@@ -1269,10 +1595,11 @@ def main() -> int:
     # 5. the 1M-atom deck, 200 steps
     pair_kernels.lj_cell_force.launches = 0
     rows = sim1m.run(200, thermo_every=100)
-    log(f"[lj-1m] run(200): {pair_kernels.lj_cell_force.launches} kernel "
-        f"launches, loop {sim1m.last_loop_time:.3f} s, grid "
-        f"{sim1m.nl.params.ncells} x cc {sim1m.nl.params.cell_cap}")
-    if pair_kernels.lj_cell_force.launches <= 0:
+    launches_1m = pair_kernels.lj_cell_force.launches
+    log(f"[lj-1m] run(200): {launches_1m} kernel launches, loop "
+        f"{sim1m.last_loop_time:.3f} s, grid {sim1m.nl.params.ncells} x cc "
+        f"{sim1m.nl.params.cell_cap}")
+    if launches_1m <= 0:
         raise RuntimeError("1M deck never launched the kernel")
     check_run(sim1m, rows, "lj-1m")
     step_rate(sim1m, 20, "lj-1m")
@@ -1393,12 +1720,13 @@ def main() -> int:
     if abs(row0["epair"] + 6.7733681) > 2e-7 or len(melt["cuda"]) != 2:
         raise RuntimeError(f"melt deck step 0 mismatch: {row0}")
 
-    # 13.-15. the profiling entry points and their kernels
+    # 13.-16. the profiling entry points and their kernels
     prof = phase_sorted_ablate(dev)
     prof.update(phase_plane_half(dev))
     column = phase_column_half(dev)
+    last = phase_last_sites(dev)
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "also_replaces": ALSO_REPLACES,
          "launches": launches, **main_cell},
@@ -1417,7 +1745,18 @@ def main() -> int:
            "source": COLUMN_HALF_SOURCE,
            "replaces": COLUMN_HALF_REPLACES[name.split("_")[0]], **entry}
           for name, entry in column.items()),
-    ]}))
+        *({"name": name, "route": "cuda", "source": LAST_SITES[name][0],
+           "replaces": LAST_SITES[name][1], **entry}
+          for name, entry in last.items()),
+    ]
+    rank(kernels, [
+        ("lj_cell_force", "lj-32k", launches / 1000, main_cell),
+        ("lj_cell_force", "lj-1m", launches_1m / 200, main_cell_1m),
+        *((name, "eam-32k", eam_launches[name] / EAM_STEPS, eam_cells[name])
+          for name in ("eam_cell_rho", "eam_cell_force")),
+        ("lj_cell_dense", "lj-1m-cell", cell_launches / DECK_STEPS,
+         main_dense)])
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,13 @@
 //                     where 0 <= own_id < cand_id and r2 < cutsq; exact 1/r2;
 //   pair_only_approx  the same with the hardware approximate reciprocal
 //                     (pl.reciprocal(approx=True) there, rcp.approx.ftz.f32
-//                     here), f32 only.
+//                     here), f32 only;
+// and P4 of benchmarks/prof/prof_kernel_cc32.py (t4_call :238-246, kernel
+// t4_kernel :210-236, pallas_call :239): pair_only's math against the same
+// constant scratch over NPAD = 512 lanes (:179), the 14*cc = 448 candidates
+// rounded up to 128-lane tiles. The lane count is an argument (`lanes`),
+// so one kernel serves both scripts; every lane of the constant scratch is
+// a live candidate, so a kept row sums `lanes` equal terms.
 // Layout: the column grid [nx*ny, nz, cc] read as cells (cx*ny+cy)*nz+cz,
 // one block row per cell, one thread per row (cell_stencil.cuh's launch
 // shape).
@@ -108,11 +114,10 @@ __global__ void pair_only_kernel(const T* __restrict__ gx,
                                  const T* __restrict__ gz,
                                  const T* __restrict__ gi, T* __restrict__ fx,
                                  T* __restrict__ fy, T* __restrict__ fz,
-                                 int ncell, int cc, T fill, T lj1, T lj2,
-                                 T cutsq) {
+                                 int ncell, int cc, int nj, T fill, T lj1,
+                                 T lj2, T cutsq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* scratch = reinterpret_cast<T*>(smem_raw);  // [4][14 * cc], all `fill`
-  const int nj = kBlocks * cc;
+  T* scratch = reinterpret_cast<T*>(smem_raw);  // [4][nj lanes], all `fill`
   const int nthreads = blockDim.x * blockDim.y;
   for (int k = threadIdx.y * blockDim.x + threadIdx.x; k < 4 * nj;
        k += nthreads)
@@ -172,10 +177,10 @@ int launch_asm(const void* gx, const void* gy, const void* gz, const void* gi,
 template <typename T, bool Approx>
 int launch_pair(const void* gx, const void* gy, const void* gz,
                 const void* gi, void* fx, void* fy, void* fz, int ncell,
-                int cc, double fill, double lj1, double lj2, double cutsq,
-                void* stream) {
+                int cc, int lanes, double fill, double lj1, double lj2,
+                double cutsq, void* stream) {
   const cell_stencil::Launch L = cell_stencil::launch_shape(ncell, cc);
-  const size_t smem = size_t(4) * kBlocks * cc * sizeof(T);
+  const size_t smem = size_t(4) * lanes * sizeof(T);
   const int err = set_smem(
       reinterpret_cast<const void*>(&pair_only_kernel<T, Approx>), smem);
   if (err != 0) return err;
@@ -184,8 +189,8 @@ int launch_pair(const void* gx, const void* gy, const void* gz,
       static_cast<const T*>(gx), static_cast<const T*>(gy),
       static_cast<const T*>(gz), static_cast<const T*>(gi),
       static_cast<T*>(fx), static_cast<T*>(fy), static_cast<T*>(fz), ncell,
-      cc, static_cast<T>(fill), static_cast<T>(lj1), static_cast<T>(lj2),
-      static_cast<T>(cutsq));
+      cc, lanes, static_cast<T>(fill), static_cast<T>(lj1),
+      static_cast<T>(lj2), static_cast<T>(cutsq));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -202,13 +207,14 @@ int launch_pair(const void* gx, const void* gy, const void* gz,
                          stream);                                         \
   }
 
+// `lanes`: the candidates of a row (14 * cc for P9, 512 for P4)
 #define PAIR_ONLY_ENTRY(NAME, T, APPROX)                                     \
   extern "C" int NAME(const void* gx, const void* gy, const void* gz,       \
                       const void* gi, void* fx, void* fy, void* fz,         \
-                      int ncell, int cc, double fill, double lj1,           \
-                      double lj2, double cutsq, void* stream) {             \
+                      int ncell, int cc, int lanes, double fill,            \
+                      double lj1, double lj2, double cutsq, void* stream) { \
     return launch_pair<T, APPROX>(gx, gy, gz, gi, fx, fy, fz, ncell, cc,    \
-                                  fill, lj1, lj2, cutsq, stream);           \
+                                  lanes, fill, lj1, lj2, cutsq, stream);    \
   }
 
 ASM_ONLY_ENTRY(lj_asm_only_f32, float)

@@ -26,12 +26,34 @@
 // r2 is formed with explicitly rounded products and sums, as the plain
 // twin forms it, so both make the same cutoff decisions; 1/r2 is an exact
 // IEEE divide (the JAX `_recip` is an exact divide off the TPU).
+//
+// The same file carries P6 and P7 of benchmarks/prof/prof_kernel_v3.py
+// (make(kern) -> call :185-198, pallas_call :187; P7 :204-212 launches
+// k1_kernel once more for its parity line, so it is P6 k1's instance with
+// another caller). Both bodies compute K7's forces with one more test,
+// a candidate is taken only when its id is >= 0 (:131-134, :168-171), so a
+// padding row never acts on a real one, wherever it sits:
+//   k1 (k1_kernel :109-142, the 27 blocks concatenated to [nz, 27 cc]) is
+//      the sweep above with CandLive = true;
+//   k2 (k2_kernel :145-183, accumulated over the nine (dx, dy) columns,
+//      three dz blocks each) is a split candidate walk: one block per cell,
+//      one warp row (thread group) per (dx, dy) column, which stages and
+//      walks that column's three blocks for every row of the cell; the nine
+//      partial sums meet in shared memory and are added in group order, as
+//      k2 adds them. Nine times the threads of k1 per cell, a ninth of the
+//      candidates per thread: more rows in flight at the 32k grid, where the
+//      sweep is bound by latency (PERF.md). Same forces as k1 to rounding.
 
 #include "cell_stencil.cuh"
 
 namespace {
 
-template <typename T>
+using cell_stencil::Rn;
+using cell_stencil::wrap_dim;
+
+constexpr int kGroups = 9;  // the (dx, dy) columns of the 27-cell stencil
+
+template <typename T, bool CandLive>
 __global__ void lj_column_full_kernel(
     const T* __restrict__ gx, const T* __restrict__ gy,
     const T* __restrict__ gz, const T* __restrict__ gi,
@@ -45,6 +67,7 @@ __global__ void lj_column_full_kernel(
       [&ax, &ay, &az, &own, cc, lj1, lj2](T dx, T dy, T dz, T r2,
                                           const T* stage, int j) {
         if (stage[3 * cc + j] == own[3]) return;  // K7's rule: by id
+        if (CandLive && stage[3 * cc + j] < T(0)) return;  // P6: ci >= 0
         const T r2inv = T(1) / r2;
         const T r6inv = r2inv * r2inv * r2inv;
         const T fpair = r6inv * (lj1 * r6inv - lj2) * r2inv;
@@ -59,15 +82,113 @@ __global__ void lj_column_full_kernel(
   }
 }
 
+// P6 k2: blockDim = (lanes, 9), one block per cell. Group g = threadIdx.y
+// walks the column (dx, dy) = (g / 3 - 1, g % 3 - 1) at dz = -1, 0, 1 (the
+// order of k2's neighbor_blocks); smem: stage[9][3 dz][4][cc], then
+// part[9][3][cc].
 template <typename T>
-int launch(const void* gx, const void* gy, const void* gz, const void* gi,
-           const void* prd, void* fx, void* fy, void* fz, int nx, int ny,
-           int nz, int cc, double lj1, double lj2, double cutsq,
-           void* stream) {
+__global__ void lj_column_groups_kernel(
+    const T* __restrict__ gx, const T* __restrict__ gy,
+    const T* __restrict__ gz, const T* __restrict__ gi,
+    const T* __restrict__ prd, T* __restrict__ fx, T* __restrict__ fy,
+    T* __restrict__ fz, int nx, int ny, int nz, int cc, T lj1, T lj2,
+    T cutsq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int g = threadIdx.y, lane = threadIdx.x;
+  T* stage = reinterpret_cast<T*>(smem_raw) + g * 3 * 4 * cc;
+  T* part = reinterpret_cast<T*>(smem_raw) + kGroups * 3 * 4 * cc;
+  const int cell = blockIdx.x;
+  const int cz = cell % nz, cy = (cell / nz) % ny, cx = cell / (nz * ny);
+  T shx, shy;
+  const int wx = wrap_dim(cx + g / 3 - 1, nx, prd[0], &shx);
+  const int wy = wrap_dim(cy + g % 3 - 1, ny, prd[1], &shy);
+  for (int d = 0; d < 3; ++d) {
+    T shz;
+    const int wz = wrap_dim(cz + d - 1, nz, prd[2], &shz);
+    const int nbase = ((wx * ny + wy) * nz + wz) * cc;
+    T* blk = stage + d * 4 * cc;
+    for (int j = lane; j < cc; j += blockDim.x) {
+      blk[j] = gx[nbase + j] + shx;
+      blk[cc + j] = gy[nbase + j] + shy;
+      blk[2 * cc + j] = gz[nbase + j] + shz;
+      blk[3 * cc + j] = gi[nbase + j];
+    }
+  }
+  __syncthreads();
+  const int row = cell * cc + lane;
+  const bool live = lane < cc;
+  if (live) {
+    const T ox = gx[row], oy = gy[row], oz = gz[row], oid = gi[row];
+    T ax = T(0), ay = T(0), az = T(0);
+    for (int d = 0; d < 3; ++d) {
+      const T* blk = stage + d * 4 * cc;
+      for (int j = 0; j < cc; ++j) {
+        const T cid = blk[3 * cc + j];
+        const T dx = ox - blk[j];
+        const T dy = oy - blk[cc + j];
+        const T dz = oz - blk[2 * cc + j];
+        const T r2 = Rn<T>::add(Rn<T>::add(Rn<T>::mul(dx, dx),
+                                           Rn<T>::mul(dy, dy)),
+                                Rn<T>::mul(dz, dz));
+        if (r2 < cutsq && cid != oid && cid >= T(0)) {
+          const T r2inv = T(1) / r2;
+          const T r6inv = r2inv * r2inv * r2inv;
+          const T fpair = r6inv * (lj1 * r6inv - lj2) * r2inv;
+          ax += dx * fpair;
+          ay += dy * fpair;
+          az += dz * fpair;
+        }
+      }
+    }
+    part[(g * 3) * cc + lane] = ax;
+    part[(g * 3 + 1) * cc + lane] = ay;
+    part[(g * 3 + 2) * cc + lane] = az;
+  }
+  __syncthreads();
+  if (g == 0 && live) {
+    T ax = T(0), ay = T(0), az = T(0);
+    for (int k = 0; k < kGroups; ++k) {  // in group order, as k2 adds them
+      ax += part[(k * 3) * cc + lane];
+      ay += part[(k * 3 + 1) * cc + lane];
+      az += part[(k * 3 + 2) * cc + lane];
+    }
+    fx[row] = ax;
+    fy[row] = ay;
+    fz[row] = az;
+  }
+}
+
+// variant 0: K7; 1: P6 k1 (ci >= 0); 2: P6 k2 (ci >= 0, split walk)
+template <typename T>
+int launch(int variant, const void* gx, const void* gy, const void* gz,
+           const void* gi, const void* prd, void* fx, void* fy, void* fz,
+           int nx, int ny, int nz, int cc, double lj1, double lj2,
+           double cutsq, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 2) {
+    const int lanes = ((cc + 31) / 32) * 32;
+    if (lanes * kGroups > 1024) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = size_t(kGroups) * 15 * cc * sizeof(T);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(&lj_column_groups_kernel<T>),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    lj_column_groups_kernel<T><<<nx * ny * nz, dim3(lanes, kGroups), smem,
+                                 st>>>(
+        static_cast<const T*>(gx), static_cast<const T*>(gy),
+        static_cast<const T*>(gz), static_cast<const T*>(gi),
+        static_cast<const T*>(prd), static_cast<T*>(fx), static_cast<T*>(fy),
+        static_cast<T*>(fz), nx, ny, nz, cc, static_cast<T>(lj1),
+        static_cast<T>(lj2), static_cast<T>(cutsq));
+    return static_cast<int>(cudaGetLastError());
+  }
   const cell_stencil::Launch L = cell_stencil::launch_shape(nx * ny * nz, cc);
   const size_t smem = size_t(4) * L.block.y * cc * sizeof(T);
-  lj_column_full_kernel<T><<<L.grid, L.block, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = variant == 1 ? lj_column_full_kernel<T, true>
+                             : lj_column_full_kernel<T, false>;
+  kernel<<<L.grid, L.block, smem, st>>>(
       static_cast<const T*>(gx), static_cast<const T*>(gy),
       static_cast<const T*>(gz), static_cast<const T*>(gi),
       static_cast<const T*>(prd), static_cast<T*>(fx), static_cast<T*>(fy),
@@ -80,22 +201,18 @@ int launch(const void* gx, const void* gy, const void* gz, const void* gi,
 
 // Plain C entry points (bound with ctypes). Launch on `stream`, do not
 // synchronise; return cudaGetLastError() after the launch (0 = success).
-extern "C" int lj_column_full_f32(const void* gx, const void* gy,
-                                  const void* gz, const void* gi,
-                                  const void* prd, void* fx, void* fy,
-                                  void* fz, int nx, int ny, int nz, int cc,
-                                  double lj1, double lj2, double cutsq,
-                                  void* stream) {
-  return launch<float>(gx, gy, gz, gi, prd, fx, fy, fz, nx, ny, nz, cc, lj1,
-                       lj2, cutsq, stream);
-}
+#define LJ_COLUMN_FULL_ENTRY(NAME, T, VARIANT)                                \
+  extern "C" int NAME(const void* gx, const void* gy, const void* gz,        \
+                      const void* gi, const void* prd, void* fx, void* fy,   \
+                      void* fz, int nx, int ny, int nz, int cc, double lj1,  \
+                      double lj2, double cutsq, void* stream) {              \
+    return launch<T>(VARIANT, gx, gy, gz, gi, prd, fx, fy, fz, nx, ny, nz,   \
+                     cc, lj1, lj2, cutsq, stream);                           \
+  }
 
-extern "C" int lj_column_full_f64(const void* gx, const void* gy,
-                                  const void* gz, const void* gi,
-                                  const void* prd, void* fx, void* fy,
-                                  void* fz, int nx, int ny, int nz, int cc,
-                                  double lj1, double lj2, double cutsq,
-                                  void* stream) {
-  return launch<double>(gx, gy, gz, gi, prd, fx, fy, fz, nx, ny, nz, cc, lj1,
-                        lj2, cutsq, stream);
-}
+LJ_COLUMN_FULL_ENTRY(lj_column_full_f32, float, 0)
+LJ_COLUMN_FULL_ENTRY(lj_column_full_f64, double, 0)
+LJ_COLUMN_FULL_ENTRY(lj_column_v3_k1_f32, float, 1)
+LJ_COLUMN_FULL_ENTRY(lj_column_v3_k1_f64, double, 1)
+LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f32, float, 2)
+LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f64, double, 2)

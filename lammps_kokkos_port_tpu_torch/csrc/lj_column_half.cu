@@ -11,9 +11,17 @@
 //   P2  benchmarks/prof/prof_halfv2.py:151 (kernel make_v2 :44-161): K1's
 //       id-free forces, exact or approximate reciprocal;
 //   P11 benchmarks/prof/prof_zchunk.py:68 (bodies fwd_kern :121-141 and
-//       fused_kern :149-168): forward-only passes, with ids and id-free.
-// as instances of one template: a mask (float ids offset by idcap; the
-// self block's slot order and 0 < r2; 0 < r2 only), a reciprocal (exact,
+//       fused_kern :149-168): forward-only passes, with ids and id-free;
+//   P3  benchmarks/prof/prof_kernel_cc32.py:182 (t2_call :181-189, kernel
+//       t2_kernel :90-177): P5 full's forces and reaction scheme with the
+//       mask own_i < cand_i && own_i >= 0 (:153-156), so a padding row takes
+//       no pair whatever its position. The TPU body stages its 14 blocks as
+//       128-lane tiles of four, the last tile filled with -1.0 (positions and
+//       id, :136-142): lane alignment only, those lanes never pass the mask,
+//       so they have no counterpart here;
+// as instances of one template: a mask (float ids offset by idcap, with or
+// without own_i >= 0; the self block's slot order and 0 < r2; 0 < r2
+// only), a reciprocal (exact,
 // or rcp.approx plus one Newton step) and a reaction output (none; the own
 // block's only; 13 blocks per cell, K8's scheme; 5 target blocks per
 // column, P8's layout). `Stage = false` (P5 noassembly) never reads the
@@ -72,7 +80,7 @@ __constant__ int kTargetXY[kTargets][2] = {
 __constant__ int kTargetOf[kBlocks] = {0, 0, 1, 1, 1, 2, 2, 2,
                                        3, 3, 3, 4, 4, 4};
 
-enum Mask { kIds, kSlot, kDist };
+enum Mask { kIds, kIdsLive, kSlot, kDist };
 enum React { kNone, kOwn, kCell, kTarget };
 
 template <typename T> struct Args {
@@ -110,7 +118,8 @@ __device__ __forceinline__ T recip(T x) {
 template <typename T, Mask M, bool Approx, React R, bool Stage>
 __device__ __forceinline__ void column_half(const Args<T>& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kNch = M == kIds ? 4 : 3;  // staged x, y, z (, id)
+  constexpr bool kHasIds = M == kIds || M == kIdsLive;
+  constexpr int kNch = kHasIds ? 4 : 3;  // staged x, y, z (, id)
   constexpr bool kRowReact = R == kOwn || R == kCell;
   const int nz = a.nz, cc = a.cc;
   const int racc_n = R == kTarget ? 3 * nz * kTargets * cc : 0;
@@ -138,7 +147,7 @@ __device__ __forceinline__ void column_half(const Args<T>& a) {
       ox = a.gx[row];
       oy = a.gy[row];
       oz = a.gz[row];
-      if (M == kIds) oid = a.gi[row];
+      if (kHasIds) oid = a.gi[row];
     }
     T ax = T(0), ay = T(0), az = T(0);
 
@@ -155,7 +164,7 @@ __device__ __forceinline__ void column_half(const Args<T>& a) {
             stage[j] = a.gx[nbase + j] + shx;
             stage[cc + j] = a.gy[nbase + j] + shy;
             stage[2 * cc + j] = a.gz[nbase + j] + shz;
-            if (M == kIds) {
+            if (kHasIds) {
               const T id = a.gi[nbase + j];
               stage[3 * cc + j] =
                   (s == 0) ? id : (id >= T(0) ? id + a.idcap : T(-1));
@@ -184,8 +193,9 @@ __device__ __forceinline__ void column_half(const Args<T>& a) {
                                              Rn<T>::mul(dy, dy)),
                                   Rn<T>::mul(dz, dz));
           bool valid;
-          if (M == kIds) {
-            valid = oid < stage[3 * cc + j] && r2 < a.cutsq;
+          if (kHasIds) {
+            valid = oid < stage[3 * cc + j] && r2 < a.cutsq &&
+                    (M == kIds || oid >= T(0));
           } else {
             valid = r2 < a.cutsq && r2 > T(0) &&
                     (M == kDist || s > 0 || j > lane);
@@ -193,7 +203,7 @@ __device__ __forceinline__ void column_half(const Args<T>& a) {
           T fpair = T(0);
           if (valid) {
             // the id-free bodies clamp r2 at 0.25 before the reciprocal
-            const T r2s = M == kIds ? r2 : fmax(r2, T(0.25));
+            const T r2s = kHasIds ? r2 : fmax(r2, T(0.25));
             const T r2inv = recip<T, Approx>(r2s);
             const T r6inv = r2inv * r2inv * r2inv;
             fpair = r6inv * (a.lj1 * r6inv - a.lj2) * r2inv;
@@ -293,7 +303,8 @@ __global__ void target_fold(const T* __restrict__ rc, T* __restrict__ fx,
 
 template <typename T, Mask M, bool Approx, React R, bool Stage>
 int launch_pass(const Args<T>& a, int w, bool fold, cudaStream_t st) {
-  constexpr int kNch = (M == kIds ? 4 : 3) + (R == kOwn || R == kCell ? 3 : 0);
+  constexpr int kNch = (M == kSlot || M == kDist ? 3 : 4) +
+                       (R == kOwn || R == kCell ? 3 : 0);
   const int lanes = ((a.cc + 31) / 32) * 32;
   const size_t smem =
       (size_t(w) * kNch * a.cc +
@@ -347,6 +358,8 @@ int launch(int pass, const Args<T>& a, int w, bool fold, cudaStream_t st) {
       return launch_pass<T, kSlot, true, kTarget, true>(a, w, fold, st);
     case 7:  // P11 fused
       return launch_pass<T, kDist, true, kNone, true>(a, w, fold, st);
+    case 8:  // P3 (prof_kernel_cc32.py T2): full with own_i >= 0
+      return launch_pass<T, kIdsLive, false, kCell, true>(a, w, fold, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -91,7 +91,8 @@ def half_walk(key, ncells, fl, prd, idcap=0, *, mask="ids", recip="exact",
     (x, y, z, and the float ids where the mask reads them).
 
     mask: "ids": own_id < cand_id, the candidate ids of the 13 neighbour
-    blocks offset by `idcap` (K8, P5, P10, P8, P11 fwd); "slot": id-free,
+    blocks offset by `idcap` (K8, P5, P10, P8, P11 fwd); "ids_live": the
+    same and own_id >= 0, so a padding row takes no pair (P3); "slot": id-free,
     the self block's candidate slot above the own slot, and 0 < r2 (K1,
     P2); "dist": 0 < r2 only, so the self block takes both orders of each
     pair (P11 fused). The id-free masks clamp r2 at 0.25 before the
@@ -114,18 +115,21 @@ def half_walk(key, ncells, fl, prd, idcap=0, *, mask="ids", recip="exact",
     if react == "target":
         rc = torch.zeros((nx, ny, 3, nz, len(TARGETS), cc), dtype=dt,
                          device=dev)
-    if mask == "ids":
+    ids = mask in ("ids", "ids_live")
+    if ids:
         own_i = fl[3].reshape(nx, ny, nz, -1)[..., :, None]
     lane = torch.arange(cc, device=dev)
     above = lane[None, :] > lane[:, None]  # [own slot, candidate slot]
-    walk = stencil(ncells, *fl[:3], prd, (fl[3],) if mask == "ids" else (),
+    walk = stencil(ncells, *fl[:3], prd, (fl[3],) if ids else (),
                    offsets=HALF)
     for off, (d, r2, _, cand) in zip(HALF, walk):
-        if mask == "ids":
+        if ids:
             ic = cand[0]
             if off != (0, 0, 0):
                 ic = torch.where(ic >= 0, ic + idcap, -1.0)
             valid = (own_i < ic[..., None, :]) & (r2 < cutsq)
+            if mask == "ids_live":
+                valid &= own_i >= 0
             r2s = torch.where(valid, r2, 1.0)
         else:
             valid = (r2 < cutsq) & (r2 > 0)

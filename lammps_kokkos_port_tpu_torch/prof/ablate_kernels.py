@@ -1,5 +1,5 @@
-"""P9, the timing ablations of the sorted lj/cut pass: CUDA for Hopper,
-plus their plain twins.
+"""P9 and P4, the timing ablations of the sorted lj/cut pass: CUDA for
+Hopper, plus their plain twins.
 
 Replaces the three Pallas bodies that benchmarks/prof/prof_sorted_ablate.py
 launches through its one call site (`make_call` :169-183, pallas_call
@@ -13,12 +13,17 @@ launches through its one call site (`make_call` :169-183, pallas_call
                       candidate scratch of 3.0 in every channel, a pair valid
                       where 0 <= own_id < 3.0 and r2 < cutsq;
   `pair_only_approx`  the same with the hardware approximate reciprocal,
-                      float32 only (as the script runs it).
+                      float32 only (as the script runs it);
+
+and P4, benchmarks/prof/prof_kernel_cc32.py's `t4_call` (:238-246, kernel
+`t4_kernel` :210-236, pallas_call :239): `pair_only` over NPAD = 512
+candidate lanes (:179) in place of 14*cc, `pair_only(..., lanes=512)`.
 
 They measure parts of a kernel and their outputs are not forces. Their
-only caller is `prof.sorted_ablate` (V2-V4). CPU tensors go to the plain
-twins; CUDA tensors go to `csrc/lj_ablate.cu` (ops/cuda_build) or raise.
-Each wrapper counts its CUDA launches in `.launches`.
+callers are `prof.sorted_ablate` (V2-V4) and `prof.kernel_cc32` (T4). CPU
+tensors go to the plain twins; CUDA tensors go to `csrc/lj_ablate.cu`
+(ops/cuda_build) or raise. Each wrapper counts its CUDA launches in
+`.launches`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ SOURCE = cuda_build.CSRC / "lj_ablate.cu"
 FILL = 3.0  # the constant candidate scratch of pair_only_kernel (:140)
 # shared memory: 14 blocks x 4 channels x cc per cell row of a block
 MAX_CELL_CAP = 256
+MAX_LANES = 2048  # pair_only's constant candidates: 4 channels in shared
 
 
 def _check_cuda(flat, prd):
@@ -52,19 +58,28 @@ def asm_only_reference(ncells, gx, gy, gz, gi, prd):
     return gx + gy, gz.clone(), gi.clone()
 
 
-def pair_only_reference(key, ncells, gx, gy, gz, gi, prd):
-    """What pair_only writes: for each row the 14*cc identical terms of the
-    constant candidate (FILL in x, y, z and id), summed. Also the twin of
-    pair_only_approx, whose reciprocal is within 2 ulp of the exact one."""
+def _lanes(lanes, gx):
+    """The candidate lanes of a row: 14*cc unless given (P4: 512)."""
+    lanes = len(HALF) * gx.shape[-1] if lanes is None else int(lanes)
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"lanes must be in [1, {MAX_LANES}], got {lanes}")
+    return lanes
+
+
+def pair_only_reference(key, ncells, gx, gy, gz, gi, prd, lanes=None):
+    """What pair_only writes: for each row the `lanes` (default 14*cc)
+    identical terms of the constant candidate (FILL in x, y, z and id),
+    summed. Also the twin of pair_only_approx, whose reciprocal is within 2
+    ulp of the exact one."""
     _, lj1, lj2, cutsq = key
     column_channels(ncells, gx, gy, gz, gi, prd)
+    n = _lanes(lanes, gx)
     d = [a - FILL for a in (gx, gy, gz)]
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
     valid = (gi < FILL) & (gi >= 0) & (r2 < cutsq)
     r2inv = 1.0 / torch.where(valid, r2, 1.0)
     r6inv = r2inv * r2inv * r2inv
     fpair = torch.where(valid, r6inv * (lj1 * r6inv - lj2) * r2inv, 0.0)
-    n = len(HALF) * gx.shape[-1]
     return tuple((a * fpair)[..., None].expand(*a.shape, n).sum(-1)
                  for a in d)
 
@@ -81,7 +96,7 @@ def _library() -> ctypes.CDLL:
     for name in ("lj_pair_only_f32", "lj_pair_only_f64",
                  "lj_pair_only_approx_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [i32] * 2 + [f64] * 4 + [ptr]
+        fn.argtypes = [ptr] * 7 + [i32] * 3 + [f64] * 4 + [ptr]
         fn.restype = i32
     return lib
 
@@ -115,9 +130,10 @@ def asm_only(ncells, gx, gy, gz, gi, prd):
     return out[0], out[1], out[2]
 
 
-def _pair(name, key, ncells, gx, gy, gz, gi, prd):
+def _pair(name, key, ncells, gx, gy, gz, gi, prd, lanes):
     fl = column_channels(ncells, gx, gy, gz, gi, prd)
     _check_cuda(fl, prd)
+    lanes = _lanes(lanes, gx)
     _, lj1, lj2, cutsq = key
     ncell, cc = fl[0].shape
     out = torch.empty((3,) + tuple(gx.shape), dtype=gx.dtype,
@@ -125,20 +141,21 @@ def _pair(name, key, ncells, gx, gy, gz, gi, prd):
     fn = getattr(_library(), f"{name}_{_suffix(gx)}")
     with torch.cuda.device(gx.device):
         err = fn(*(a.data_ptr() for a in fl), out[0].data_ptr(),
-                 out[1].data_ptr(), out[2].data_ptr(), ncell, cc, FILL, lj1,
-                 lj2, cutsq, _stream(gx))
+                 out[1].data_ptr(), out[2].data_ptr(), ncell, cc, lanes,
+                 FILL, lj1, lj2, cutsq, _stream(gx))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out[0], out[1], out[2]
 
 
-def pair_only(key, ncells, gx, gy, gz, gi, prd):
-    """V3: the pair math against the constant candidate scratch, exact
-    reciprocal. Arguments as `asm_only` (prd is checked and unused, as in
-    the script's call); returns three [nx*ny, nz, cc]."""
+def pair_only(key, ncells, gx, gy, gz, gi, prd, lanes=None):
+    """V3 (and T4 with lanes=512): the pair math against the constant
+    candidate scratch, exact reciprocal, over `lanes` candidates per row
+    (default 14*cc). Arguments as `asm_only` (prd is checked and unused, as
+    in the scripts' calls); returns three [nx*ny, nz, cc]."""
     if gx.device.type == "cpu":
-        return pair_only_reference(key, ncells, gx, gy, gz, gi, prd)
-    out = _pair("lj_pair_only", key, ncells, gx, gy, gz, gi, prd)
+        return pair_only_reference(key, ncells, gx, gy, gz, gi, prd, lanes)
+    out = _pair("lj_pair_only", key, ncells, gx, gy, gz, gi, prd, lanes)
     pair_only.launches += 1
     return out
 
@@ -150,7 +167,8 @@ def pair_only_approx(key, ncells, gx, gy, gz, gi, prd):
         raise TypeError(f"pair_only_approx takes float32, got {gx.dtype}")
     if gx.device.type == "cpu":
         return pair_only_reference(key, ncells, gx, gy, gz, gi, prd)
-    out = _pair("lj_pair_only_approx", key, ncells, gx, gy, gz, gi, prd)
+    out = _pair("lj_pair_only_approx", key, ncells, gx, gy, gz, gi, prd,
+                None)
     pair_only_approx.launches += 1
     return out
 

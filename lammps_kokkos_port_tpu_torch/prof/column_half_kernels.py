@@ -1,7 +1,7 @@
-"""P2, P5, P8 and P11, the Newton-half column passes of the profiling
+"""P2, P3, P5, P8 and P11, the Newton-half column passes of the profiling
 scripts: CUDA for Hopper, plus their plain twins.
 
-Replaces the Pallas bodies of four scripts in benchmarks/prof/, each lj/cut
+Replaces the Pallas bodies of five scripts in benchmarks/prof/, each lj/cut
 over the half stencil (ops/half_kernels.HALF) of the column layout
 `[nx*ny, nz, cc]`:
 
@@ -23,7 +23,14 @@ over the half stencil (ops/half_kernels.HALF) of the column layout
   P11 prof_zchunk.py:68 (`fwd_kern` :121-141, `fused_kern` :149-168):
       `zchunk_fwd`, the pass of `iso_noreverse` (and of P10's function),
       and `zchunk_fused`, forward only, id-free, 0 < r2 < cutsq (both
-      orders in the self block), approximate reciprocal.
+      orders in the self block), approximate reciprocal;
+  P3  prof_kernel_cc32.py:182 (`t2_call` :181-189, `t2_kernel` :90-177):
+      `cc32_half`, `iso_full`'s forces and reaction scheme with the mask
+      own_id < cand_id and own_id >= 0 (:153-156), so a padding row takes no
+      pair wherever it sits. The script stages its 14 blocks as 128-lane
+      tiles of four blocks and fills the last tile's 64 lanes with -1.0 in
+      every channel (:136-142): TPU lane alignment, lanes that never pass
+      the mask, which have no counterpart here.
 
 Every wrapper takes `(key, ncells, idcap, gx, gy, gz, gi, prd, zb=None)`:
 the channels of prof/grid.SortedPlanes.col, float ids `gi` (-1 for
@@ -66,6 +73,7 @@ SPECS = {
     "halfv2_approx": (6, dict(mask="slot", recip="approx", react="target")),
     "zchunk_fwd": (3, dict(mask="ids", react="none")),
     "zchunk_fused": (7, dict(mask="dist", recip="approx", react="none")),
+    "cc32_half": (8, dict(mask="ids_live", react="cell")),
 }
 
 
@@ -76,7 +84,7 @@ def _channels(name, ncells, idcap, gx, gy, gz, gi, prd, zb):
         raise ValueError(f"column-half grid {tuple(ncells)} needs nx, ny >= "
                          "2 and nz >= 3")
     fl = column_channels(ncells, gx, gy, gz, gi, prd)
-    if SPECS[name][1]["mask"] == "ids":
+    if SPECS[name][1]["mask"].startswith("ids"):
         check_id_limit(gi, idcap)
     nz, cc = ncells[2], gx.shape[-1]
     lanes = -(-cc // 32) * 32
@@ -222,6 +230,10 @@ zchunk_fwd = _wrapper("zchunk_fwd", """P11 `fwd`: the forward half sums
 zchunk_fused = _wrapper("zchunk_fused", """P11 `fused`: forward sums only,
     id-free with no slot order (0 < r2 < cutsq, so the self block takes
     each pair in both orders), approximate reciprocal. Returns (fx, fy,
+    fz).""")
+cc32_half = _wrapper("cc32_half", """P3 (prof_kernel_cc32.py T2): `iso_full`
+    with the mask own_id < cand_id and own_id >= 0, so a padding row (id -1)
+    takes no pair, even within the cutoff of a real row. Returns (fx, fy,
     fz).""")
 
 PASSES = {name: globals()[name] for name in SPECS}

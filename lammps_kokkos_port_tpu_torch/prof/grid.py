@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from ..ops import sortedforce
 from ..presets import lj_melt_sim
 
 
@@ -63,15 +64,31 @@ def melt_sim(cells: int, device):
     return sim
 
 
+def resort(sim, cell_cap: int):
+    """prof_kernel_cc32.py:50-54: the sorted state re-sorted at a forced
+    `cell_cap` (sortedforce.expand_state, then build). Returns (state,
+    params); raises when a cell holds more atoms than `cell_cap`."""
+    p = dataclasses.replace(sim.nl.params, cell_cap=cell_cap)
+    state, cl = sortedforce.build(sortedforce.expand_state(sim.state, p), p)
+    if bool(cl.overflow):
+        raise RuntimeError(f"cell_cap {cell_cap} overflowed")
+    return state, p
+
+
 def sorted_planes(sim, x: torch.Tensor | None = None,
-                  dtype: torch.dtype | None = None) -> SortedPlanes:
+                  dtype: torch.dtype | None = None,
+                  cell_cap: int | None = None) -> SortedPlanes:
     """The scripts' inputs from a set-up sorted `Simulation`; `x` [cap, 3]
     replaces the state's positions (e.g. jittered ones); `dtype` is the
-    planes' float type (default: the state's)."""
+    planes' float type (default: the state's); `cell_cap` re-sorts the state
+    at that cell capacity first (`resort`; `x` then replaces the re-sorted
+    positions)."""
     if sim.nl is None or sim.list_mode != "sorted":
         raise ValueError("sorted_planes needs a set-up Simulation in list "
                          "mode 'sorted'")
     st, p = sim.state, sim.nl.params
+    if cell_cap is not None:
+        st, p = resort(sim, cell_cap)
     x = st.x if x is None else x
     dtype = dtype or st.dtype
     cap = st.capacity

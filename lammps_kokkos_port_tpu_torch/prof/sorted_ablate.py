@@ -6,7 +6,8 @@ check=False)`, f32; 32,000 atoms at cells 20) it prints, under the
 script's labels:
 
   step         the sorted step (`sim._get_segment_runner()`), slope over
-               100 and 300 steps;
+               100 and 300 steps of an eager loop (a segment reads the
+               host, so it cannot be captured in a CUDA graph);
   V0 half      the port's lj kernel (ops/pair_kernels.lj_cell_force, the
                counterpart of K1 column_half_force_pallas);
   V1 full27    K7 (ops/column_kernels.lj_column_force);
@@ -17,7 +18,7 @@ script's labels:
                plain PyTorch (the label is the script's; there XLA ran it).
 
 Each kernel line is `prof.timing.slope_ms` of `carry + EPS * f`, k = 20
-and 60, as the script's `scan_time`. The random indices are drawn with
+and 60 (CUDA-graph replays on the card), as the script's `scan_time`. The random indices are drawn with
 numpy from the script's seeds (0 and 1); jax.random would give others.
 
 Run on the card: `python -m lammps_kokkos_port_tpu_torch.prof.sorted_ablate`

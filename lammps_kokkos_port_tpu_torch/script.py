@@ -120,6 +120,9 @@ class LammpsScript:
         self.dt: float | None = None
         self.thermo_every = 0
         self.ntimestep = 0
+        # the step the current (or last) run began at: thermo `elapsed` is
+        # ntimestep - firststep (ref: src/thermo.cpp compute_elapsed)
+        self._first_step = 0
         self.variables: dict[str, str] = dict(var_overrides or {})
         self._equal_vars: dict[str, str] = {}
         self._index_vars: dict[str, dict] = {
@@ -409,7 +412,7 @@ class LammpsScript:
         row = self.sim.thermo()
         row["step"] = self.sim.ntimestep
         row["atoms"] = row["natoms"]
-        row["elapsed"] = self.sim.ntimestep
+        row["elapsed"] = self.sim.ntimestep - self._first_step
         row["time"] = self.sim.ntimestep * (self.dt or 0.0)
         row["lx"], row["ly"], row["lz"] = self.sim.state.box.prd.tolist()
         row["density"] = self._density(row)
@@ -739,7 +742,7 @@ class LammpsScript:
         row["step"] = step_no
         row["atoms"] = row["natoms"]
         row["cpu"] = time.perf_counter() - t0
-        row["elapsed"] = step_no
+        row["elapsed"] = step_no - self._first_step
         row["time"] = step_no * sim.dt
         # CPU-rate keywords relative to the previous thermo line
         # (ref: src/thermo.cpp compute_spcpu/tpcpu/cpuremain)
@@ -793,6 +796,7 @@ class LammpsScript:
             (self._THERMO_COLS[c][0] if c in self._THERMO_COLS else c)
             for c in self._thermo_columns()))
         t0 = time.perf_counter()
+        self._first_step = sim.ntimestep
         self._thermo_prev = (sim.ntimestep, 0.0)
         self._run_end = sim.ntimestep + nsteps
         rows = [self._emit_thermo_row(sim, sim.ntimestep, t0)]

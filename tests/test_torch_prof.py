@@ -275,3 +275,18 @@ def test_entry_points_print_every_label(capsys):
         assert sum(ln.startswith(label) for ln in lines) == 1, label
     # K8 against the full-stencil kernel on the melt's state, f32
     assert res["parity col vs v3"] < 1e-4
+
+
+def test_counted_kernels_finds_every_wrapper_once():
+    """slope_ms credits graph replays to the counters counted_kernels()
+    finds: every loaded wrapper, each once though several modules import
+    it."""
+    from lammps_kokkos_port_tpu_torch.prof import (  # noqa: F401
+        dynslice, kernel_cc32, kernel_v3, zwin_proto)
+
+    fns = timing.counted_kernels()
+    assert len(fns) == len({id(f) for f in fns})
+    names = {f.__name__ for f in fns}
+    assert {"lj_cell_force", "lj_column_force", "lj_plane_half_force",
+            "pair_only", "iso_full", "cc32_half", "v3_k1", "v3_k2",
+            "dynslice", "zwin_proto"} <= names

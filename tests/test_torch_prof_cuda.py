@@ -1,7 +1,10 @@
 """PyTorch port, the CUDA kernels of the profiling paths against their
-plain twins: K7 (csrc/lj_column_full.cu), K8 and P10
-(csrc/lj_plane_half.cu), P9 (csrc/lj_ablate.cu), and the Newton-half
-column passes P2, P5, P8 and P11 (csrc/lj_column_half.cu).
+plain twins: K7, P6 and P7 (csrc/lj_column_full.cu), K8 and P10
+(csrc/lj_plane_half.cu), P9 and P4 (csrc/lj_ablate.cu), the Newton-half
+column passes P2, P3, P5, P8 and P11 (csrc/lj_column_half.cu), P1
+(csrc/dynslice.cu) and P12 (csrc/zwin_proto.cu: the pass and its fold,
+against the twin, whose reactions are added window by window), and the
+graph-replayed slope of prof.timing against the eager one.
 
 Needs an NVIDIA GPU with nvcc (marker `cuda`; skipped elsewhere). The
 kernels are built from the repository's sources at first use. Run on the
@@ -18,8 +21,17 @@ shared-memory atomics, in an order that changes from run to run. P9's
 approximate reciprocal (rcp.approx.ftz.f32, at most 1 ulp off) is held to
 the exact twin within the same f32 tolerance; so are P2's and P11's, which
 add one Newton step (in f64 seeded from the f32 approximation, about
-2^-46 relative after the step, inside the f64 tolerance).
+2^-46 relative after the step, inside the f64 tolerance). P12 runs in
+f32 only (the approximate reciprocal): its random inputs hold
+near-coincident pairs (max|f| about 1e14), so each element is held to its
+own scale, the sum of the magnitudes of its terms (zwin_kernels
+`max_scaled_error`), within 1e-4; planted faults (a window start moved by
+one, a neighbour column off by one) fail that check. P1 sums window values
+in the same order as its twin (rtol 1e-6).
 """
+
+import dataclasses
+import time
 
 import pytest
 import torch
@@ -29,6 +41,10 @@ from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
 from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
+from lammps_kokkos_port_tpu_torch.prof import dynslice, timing
+from lammps_kokkos_port_tpu_torch.prof import dynslice_kernels as dk
+from lammps_kokkos_port_tpu_torch.prof import v3_kernels
+from lammps_kokkos_port_tpu_torch.prof import zwin_kernels as zk
 from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
 
 pytestmark = pytest.mark.cuda
@@ -135,6 +151,11 @@ def test_ablation_kernels_match_twins(cuda, dtype):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         _assert_close(got, ref, dtype)
+    # P4: 512 lanes
+    ref = ak.pair_only_reference(sp.key, sp.ncells, *live, ids, sp.prd,
+                                 lanes=512)
+    _assert_close(ak.pair_only(sp.key, sp.ncells, *live, ids, sp.prd,
+                               lanes=512), ref, dtype)
     if dtype == torch.float64:
         with pytest.raises(TypeError, match="float32"):
             ak.pair_only_approx(sp.key, sp.ncells, *live, ids, sp.prd)
@@ -173,3 +194,142 @@ def test_column_half_forces_equal_full_stencil(cuda, dtype):
                    chk.halfv2(*args), chk.halfv2_approx(*args),
                    chk.wo_half_force(*args)):
         _assert_close([a.reshape(-1) for a in forces], f1, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v3_kernels_match_twins_and_k7(cuda, dtype, monkeypatch):
+    """P6 k1 (P7's instance) and k2 against their twins, each other and K7
+    (no pad within the cutoff on the melt: the same forces)."""
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, *sp.col, sp.prd)
+    k7 = column_kernels.lj_column_force(*args)
+    got = {}
+    for name in ("v3_k1", "v3_k2"):
+        ref = v3_kernels.v3_reference(*args, grouped=name == "v3_k2")
+        fn = getattr(v3_kernels, name)
+        before = fn.launches
+        with monkeypatch.context() as m:
+            _no_plain(m, v3_kernels, "v3_reference")
+            got[name] = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _assert_close(got[name], ref, dtype)
+        _assert_close(got[name], k7, dtype)
+    _assert_close(got["v3_k2"], got["v3_k1"], dtype)
+
+
+def _live_pad(sp):
+    """Copies of sp.col with the row after a cell's first real row made a
+    pad (id -1) 0.84 from that row along x, inside the cutoff; (col, real
+    row, pad row) in flat indices."""
+    col = tuple(a.clone() for a in sp.col)
+    flat = [a.reshape(-1) for a in col]
+    real = int(torch.nonzero(flat[3] >= 0)[0])  # the first row of a cell
+    pad = real + 1
+    flat[3][pad] = -1.0
+    for d in range(3):
+        flat[d][pad] = flat[d][real] + (0.84 if d == 0 else 0.0)
+    return col, real, pad
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_v3_kernels_keep_their_candidate_mask(cuda, dtype):
+    """P6 k1 and k2 with a pad inside the cutoff of a real row: against
+    their twins (cand_id >= 0: the pad acts on no row), and unlike K7, which
+    takes the pad as a candidate of the real row."""
+    sp = _planes(cuda, dtype)
+    col, real, _ = _live_pad(sp)
+    args = (sp.key, sp.ncells, *col, sp.prd)
+    k7 = column_kernels.lj_column_force(*args)
+    for name in ("v3_k1", "v3_k2"):
+        got = getattr(v3_kernels, name)(*args)
+        _assert_close(got, v3_kernels.v3_reference(
+            *args, grouped=name == "v3_k2"), dtype)
+        assert abs(float(got[0].reshape(-1)[real])
+                   - float(k7[0].reshape(-1)[real])) > 1.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cc32_half_keeps_its_mask(cuda, dtype):
+    """P3 against its twin with a pad inside the cutoff of a real row (the
+    pad takes no pair), and equal to P5 full where no pad is near."""
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+    _assert_close(chk.cc32_half(*args), chk.iso_full(*args), dtype)
+    col, _, pad = _live_pad(sp)
+    args = (sp.key, sp.ncells, sp.cap, *col, sp.prd)
+    got = chk.cc32_half(*args)
+    _assert_close(got, chk.reference("cc32_half", *args), dtype)
+    assert all(float(a.reshape(-1)[pad]) == 0.0 for a in got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [512, 128])
+def test_dynslice_matches_twin(cuda, dtype, g, monkeypatch):
+    starts = dynslice.script_starts(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ext = torch.randn((dynslice.NCOL, g), generator=gen, device=cuda,
+                      dtype=dtype)
+    for mode in dk.MODES:
+        ref = dk.dynslice_reference(starts, ext, dynslice.W, mode)
+        with monkeypatch.context() as m:
+            _no_plain(m, dk, "dynslice_reference")
+            before = dk.dynslice.launches
+            got = dk.dynslice(starts, ext, dynslice.W, mode)
+        torch.cuda.synchronize()
+        assert dk.dynslice.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=1e-6,
+                                   atol=1e-6 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [zk.ZwinShape(), zk.ZwinShape(26, 64)])
+def test_zwin_matches_twin_and_catches_planted_faults(cuda, shape,
+                                                      monkeypatch):
+    inputs = zk.zwin_inputs(shape, device=cuda)
+    ref = zk.zwin_reference(*inputs, shape=shape)
+    scale = zk.zwin_reference(*inputs, shape=shape, magnitude=True)
+    before = zk.zwin_proto.launches
+    with monkeypatch.context() as m:
+        _no_plain(m, zk, "zwin_reference")
+        got = zk.zwin_proto(*inputs, shape=shape)
+        # the kernel with a fault planted in its inputs
+        moved = zk.zwin_proto(*inputs[:-1], inputs[-1] + 1, shape=shape)
+        wrong = zk.zwin_proto(*inputs, shape=dataclasses.replace(
+            shape, offsets=(1, -1, 12, -11)))
+    torch.cuda.synchronize()
+    assert zk.zwin_proto.launches == before + 3
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    assert zk.max_scaled_error(got, ref, scale) <= 1e-4
+    for bad in (moved, wrong):
+        assert zk.max_scaled_error(bad, ref, scale) > 0.1
+
+
+def test_graph_slope_against_eager(cuda):
+    """slope_ms replays CUDA graphs on the card: within an order of
+    magnitude of the eager loop's slope (which adds the host's launch
+    cost), and the counters credit every replayed launch."""
+    sp = _planes(cuda, torch.float32)
+    gx, gy, gz, gi = sp.col
+
+    def forces(cgx, cgy, cgz):
+        return chk.iso_full(sp.key, sp.ncells, sp.cap, cgx, cgy, cgz, gi,
+                            sp.prd)
+
+    body = timing.force_body(forces)
+    before = chk.iso_full.launches
+    graph = timing.slope_ms(body, (gx, gy, gz), 10, 30, reps=2)
+    # eager warm-up 10, untimed replays 10 + 30, two timed pairs
+    assert chk.iso_full.launches - before == 10 + 40 + 2 * 40
+
+    def eager(k):
+        c = (gx, gy, gz)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            c = body(c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    eager(10)
+    slope = (eager(30) - eager(10)) / 20 * 1e3
+    assert 0 < graph < 10 * slope and slope < 10 * graph

@@ -204,3 +204,20 @@ def test_cli_runs_a_deck(tmp_path, capsys):
         # the default device is the card: no silent run on the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["-in", str(deck)])
+
+
+def test_elapsed_counts_from_the_start_of_each_run():
+    """thermo `elapsed` is the steps since the current run began (LAMMPS
+    ntimestep - firststep), so a second run's first row reads 0 while its
+    step goes on from the first run's end; also inside an equal-style
+    variable. (The JAX interpreter prints the absolute step here.)"""
+    deck = MELT_DECK.replace(
+        "thermo          50\nrun             50",
+        "variable        e equal elapsed\n"
+        "thermo_style    custom step elapsed v_e temp\n"
+        "thermo          2\nrun             4\nrun             2")
+    s, rows = run_deck(LammpsScript, deck, dtype=torch.float64, device="cpu")
+    assert [(r["step"], r["elapsed"]) for r in rows] == [
+        (0, 0), (2, 2), (4, 4), (4, 0), (6, 2)]
+    assert [r["v_e"] for r in rows] == [0.0, 2.0, 4.0, 0.0, 2.0]
+    assert s._log_lines[1].split()[:3] == ["0", "0", "0"]
