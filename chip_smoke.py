@@ -17,7 +17,8 @@ checks them on the card:
   4. the LJ main path: the 32k-atom bench/in.lj melt in f32, setup() +
      run(1000, thermo_every=100), with the kernel's launch count over that
      run, energy drift and the slope-timed step rate;
-  5. the 1M-atom deck (cells=63), f32, 200 steps, same checks;
+  5. the 1M-atom deck (cells=63), f32, 200 steps, same checks, and a
+     torch.profiler split of one segment (the kernel, re-binning, rest);
   6. the two EAM kernels against their plain versions at the eam-32k grid,
      f32 and f64, positions jittered by a seeded +-0.08 A;
   7. the EAM slice on the card against the same slice on the CPU (plain
@@ -436,6 +437,38 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
                            "tolerance")
     return {"max_abs_err": max_abs, "ms": dev_ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, **bound}
+
+
+def log_walk_launch(name: str, ncells, cc: int, shape) -> None:
+    """The launch a cell_walk.cuh kernel makes on the grid, as its library
+    computes it (`shape(dtype)`: blocks, threads per block, dynamic shared
+    memory); ptxas does not report dynamic shared memory."""
+    import torch
+
+    f32, f64 = shape(torch.float32), shape(torch.float64)
+    log(f"[build] {name} launch on grid {tuple(ncells)} x cc {cc}: "
+        f"{f32['blocks']} blocks of {f32['threads'][0]} x "
+        f"{f32['threads'][1]} threads, dynamic shared memory per block "
+        f"{f32['smem_bytes']} B f32 / {f64['smem_bytes']} B f64")
+
+
+def kernel_on_deck_state(sim, label: str) -> None:
+    """Device time per call of lj_cell_force on the deck's own positions
+    (the state after its runs, no jitter), beside the kernel line's time
+    on the jittered lattice: whether the kernel's time inside the step
+    differs from the kernel line's by its inputs."""
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+    from lammps_kokkos_port_tpu_torch.ops.sortedforce import PAD_POS
+
+    st, p = sim.state, sim.nl.params
+    g = st.x.t().contiguous().reshape(3, p.total_cells, p.cell_cap)
+    args = (sim.pair_style.kernel_key(), p.ncells, g[0], g[1], g[2],
+            st.box.prd)
+    ms = one_device_ms(lambda: lj_cell_force(*args))
+    pairs = grid_pairs(p.ncells, g[0], g[1], g[2], st.box.prd, args[0][-1])
+    log(f"[{label} kernel on the deck's state] device {ms:.4f} ms per "
+        f"call, {pairs} pairs in the cutoff, "
+        f"{int((g[0] < PAD_POS / 2).sum())} real rows")
 
 
 def check_run(sim, rows, label: str, bound: float = 0.02) -> None:
@@ -1564,6 +1597,11 @@ def main() -> int:
                         dtype=torch.float32, device=dev)
     sim1m.setup()
     log(f"[setup] 32k + 1M decks {time.perf_counter() - t0:.1f} s")
+    for deck in (sim32, sim1m):
+        p = deck.nl.params
+        log_walk_launch("lj_cell_force", p.ncells, p.cell_cap,
+                        lambda dt, p=p: pair_kernels.launch_shape(p.ncells,
+                                                                  dt))
     main_cell = kernel_vs_plain(sim32, torch.float32, "32k f32")
     kernel_vs_plain(sim32, torch.float64, "32k f64")
     main_cell_1m = kernel_vs_plain(sim1m, torch.float32, "1M f32")
@@ -1602,7 +1640,10 @@ def main() -> int:
     if launches_1m <= 0:
         raise RuntimeError("1M deck never launched the kernel")
     check_run(sim1m, rows, "lj-1m")
-    step_rate(sim1m, 20, "lj-1m")
+    step_1m = step_rate(sim1m, 20, "lj-1m")
+    profile_segment(sim1m, 20, step_1m, "lj-1m", ("lj_cell_force",),
+                    {"rebin": [(sortedforce, "rebuild_state")]})
+    kernel_on_deck_state(sim1m, "lj-1m")
 
     # 6.-8. the EAM deck on the synthetic Sutton-Chen stand-in
     with tempfile.TemporaryDirectory() as tmp:
@@ -1617,16 +1658,15 @@ def main() -> int:
         cc = eam.nl.params.cell_cap
         log(f"[setup] eam-32k f32 + f64 decks {time.perf_counter() - t0:.1f}"
             f" s, grid {eam.nl.params.ncells} x cc {cc}")
-        # the kernels stage their channels in dynamic shared memory only
-        # (csrc/cell_stencil.cuh launch_shape: cc rounded up to a warp,
+        # the EAM kernels stage their channels in dynamic shared memory
+        # only (csrc/cell_stencil.cuh launch_shape: cc rounded up to a warp,
         # 128 / lanes cells per block), which ptxas does not report
         lanes = -(-cc // 32) * 32
         cpb = 1 if lanes >= 128 else 128 // lanes
         log(f"[build] dynamic shared memory per block at cc {cc} ({lanes} x "
             f"{cpb} threads): " + ", ".join(
                 f"{name} {nch * cpb * cc * 4} B f32 / {nch * cpb * cc * 8} B"
-                f" f64" for name, nch in (("lj_cell_force", 3),
-                                          ("eam_cell_rho", 3),
+                f" f64" for name, nch in (("eam_cell_rho", 3),
                                           ("eam_cell_force", 4))))
         eam_cells = eam_kernels_vs_plain(eam, torch.float32, "eam-32k f32")
         eam_kernels_vs_plain(eam64, torch.float64, "eam-32k f64")
@@ -1666,12 +1706,10 @@ def main() -> int:
         # 9. the input-deck slice: 1M in.lj through LammpsScript, cell mode
         script, cell_launches = deck_1m_cell(tmp)
         sim = script.sim
-        cc = sim.nl.params.cell_cap
-        lanes = -(-cc // 32) * 32
-        cpb = 1 if lanes >= 128 else 128 // lanes
-        log(f"[build] lj_cell_dense dynamic shared memory per block at cc "
-            f"{cc} ({lanes} x {cpb} threads): {cpb * cc * 16} B f32 / "
-            f"{cpb * cc * 28} B f64")
+        log_walk_launch("lj_cell_dense", sim.nl.params.ncells,
+                        sim.nl.params.cell_cap,
+                        lambda dt, p=sim.nl.params: cell_kernels.launch_shape(
+                            p.total_cells, dt))
         cell_step = step_rate(sim, 20, "lj-1m-cell")
         profile_segment(sim, 40, cell_step, "lj-1m-cell", ("lj_cell_dense",),
                         {"rebin": [(cellforce, "rebuild_merge")]})

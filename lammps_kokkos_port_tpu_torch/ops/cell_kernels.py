@@ -33,9 +33,9 @@ import functools
 import torch
 
 from . import cuda_build
+from .pair_kernels import bind_walk_library, walk_launch
 
 SOURCE = cuda_build.CSRC / "lj_cell_dense.cu"
-MAX_CELL_CAP = 1024  # one thread per bucket lane, one block row per cell
 
 
 def _check(buckets, stencil, x, prd):
@@ -95,13 +95,14 @@ def lj_cell_dense_reference(key, buckets, stencil, x, prd,
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (once per source and flag set) and load the kernel library."""
-    lib = cuda_build.load(SOURCE)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("lj_cell_dense_f32", "lj_cell_dense_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 5 + [i32] * 3 + [f64] * 3 + [ptr]
-        fn.restype = i32
-    return lib
+    return bind_walk_library(cuda_build.load(SOURCE), "lj_cell_dense", 5, 3,
+                             3)
+
+
+def launch_shape(ncell: int, dtype) -> dict:
+    """The launch `lj_cell_dense` makes on `ncell` cells in `dtype` (builds
+    the library)."""
+    return walk_launch(_library(), "lj_cell_dense", ncell, dtype)
 
 
 def lj_cell_dense(key, buckets, stencil, x, prd):
@@ -126,8 +127,6 @@ def lj_cell_dense(key, buckets, stencil, x, prd):
     if not all(a.is_contiguous() for a in (buckets, stencil, x, prd)):
         raise ValueError("kernel inputs must be contiguous")
     ntot, cc = buckets.shape[0] - 1, buckets.shape[1]
-    if cc > MAX_CELL_CAP:
-        raise ValueError(f"cell_cap {cc} > {MAX_CELL_CAP}")
     _, lj1, lj2, cutsq = key
     f = torch.zeros_like(x)
     fn = (_library().lj_cell_dense_f32 if x.dtype == torch.float32

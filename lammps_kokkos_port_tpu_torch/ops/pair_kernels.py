@@ -12,6 +12,13 @@ to the kernel in `csrc/lj_cell_force.cu`, which is built with nvcc at first
 use into `_build/` and bound with ctypes (ops/cuda_build). There is no
 fallback from a CUDA tensor to the plain version: the wrapper launches the
 kernel or raises.
+
+The kernel skips pad rows (their position sentinel, ops/sortedforce.py)
+instead of walking them, which gives the plain version's result only while
+no pad lies within the cutoff of another row: on a CUDA tensor
+`lj_cell_force` raises on a cutoff of PAD_STEP or more
+(`check_pad_cutoff`); the kernel checks the box's part of the argument
+itself (csrc/lj_cell_force.cu).
 """
 
 from __future__ import annotations
@@ -22,9 +29,12 @@ import functools
 import torch
 
 from . import cuda_build
+from .sortedforce import PAD_STEP
 
 SOURCE = cuda_build.CSRC / "lj_cell_force.cu"
-MAX_CELL_CAP = 1024  # one thread per row, one block row per cell
+# the cell_stencil.cuh sweep kernels: one thread per row, one block row per
+# cell (lj_cell_force itself runs any cell_cap in row passes of one warp)
+MAX_CELL_CAP = 1024
 
 _OFFSETS = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
             for oz in (-1, 0, 1)]
@@ -55,8 +65,8 @@ def check_grid(ncells, channels, prd, min_cells: int = 3):
 
 
 def check_launch(channels, prd):
-    """What the CUDA kernels take beyond check_grid: a CUDA device, f32 or
-    f64, contiguous tensors, cell_cap <= MAX_CELL_CAP."""
+    """What the CUDA cell kernels take beyond check_grid: a CUDA device,
+    f32 or f64, contiguous tensors, cell_cap <= MAX_CELL_CAP."""
     g0 = channels[0]
     if g0.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {g0.device}")
@@ -122,16 +132,60 @@ def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
     return torch.stack(out)
 
 
+def check_pad_cutoff(cutsq: float) -> None:
+    """The kernel's pad skip is exact only while no pad lies within the
+    cutoff of another pad, in any frame the stencil shifts a candidate
+    into. In a frame where one axis is not shifted, two pads differ by a
+    nonzero multiple of PAD_STEP in that axis, so a cutoff below PAD_STEP
+    keeps them apart; the frames shifted in all three axes and the real
+    rows are the box's part of the argument, which the kernel checks on
+    the card (csrc/lj_cell_force.cu), walking every row as the plain
+    version does where it fails. The plain version skips nothing and
+    needs no such check."""
+    if not cutsq < PAD_STEP ** 2:
+        raise ValueError(f"lj cell kernel: cutoff {cutsq ** 0.5:g} >= the "
+                         f"pad spacing {PAD_STEP:g} of the sorted layout")
+
+
+def bind_walk_library(lib: ctypes.CDLL, stem: str, npointers: int,
+                      nints: int, nfloats: int) -> ctypes.CDLL:
+    """Set the ctypes signatures of a cell_walk.cuh kernel library:
+    `<stem>_f32` and `<stem>_f64` (pointers, ints, doubles, the stream) and
+    `<stem>_shape` (ncell, f64, int out[4])."""
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for name in (f"{stem}_f32", f"{stem}_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * npointers + [i32] * nints + [f64] * nfloats + [
+            ptr]
+        fn.restype = i32
+    shape = getattr(lib, f"{stem}_shape")
+    shape.argtypes = [i32, i32, ptr]
+    shape.restype = i32
+    return lib
+
+
+def walk_launch(lib: ctypes.CDLL, stem: str, ncell: int, dtype) -> dict:
+    """The launch a cell_walk.cuh kernel makes on `ncell` cells in `dtype`,
+    as the library computes it: blocks, threads per block, dynamic shared
+    memory bytes."""
+    out = (ctypes.c_int * 4)()
+    getattr(lib, f"{stem}_shape")(ncell, int(dtype == torch.float64), out)
+    return {"blocks": out[0], "threads": (out[1], out[2]),
+            "smem_bytes": out[3]}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (once per source and flag set) and load the kernel library."""
-    lib = cuda_build.load(SOURCE)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("lj_cell_force_f32", "lj_cell_force_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [i32] * 4 + [f64] * 3 + [ptr]
-        fn.restype = i32
-    return lib
+    return bind_walk_library(cuda_build.load(SOURCE), "lj_cell_force", 7, 4,
+                             3)
+
+
+def launch_shape(ncells, dtype) -> dict:
+    """The launch `lj_cell_force` makes on the grid `ncells` in `dtype`
+    (builds the library)."""
+    nx, ny, nz = ncells
+    return walk_launch(_library(), "lj_cell_force", nx * ny * nz, dtype)
 
 
 def lj_cell_force(key, ncells, gx, gy, gz, prd):
@@ -149,8 +203,9 @@ def lj_cell_force(key, ncells, gx, gy, gz, prd):
     if gx.device.type == "cpu":
         return lj_cell_force_reference(key, ncells, gx, gy, gz, prd)
     check_launch((gx, gy, gz), prd)
-    ncell, cc = gx.shape
     _, lj1, lj2, cutsq = key
+    check_pad_cutoff(cutsq)
+    ncell, cc = gx.shape
     out = torch.empty((3, ncell, cc), dtype=gx.dtype, device=gx.device)
     fn = (_library().lj_cell_force_f32 if gx.dtype == torch.float32
           else _library().lj_cell_force_f64)

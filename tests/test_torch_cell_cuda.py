@@ -11,9 +11,11 @@ card with:
 not use.) Tolerances: f64 rtol 1e-10 with atol 1e-10*max|f|; f32 rtol 1e-4
 with atol 1e-4*max|f|. The kernel rounds the minimum image and r2 as the
 twin does, so both make the same cutoff decisions; only the order of the
-force sums differs.
+force sums differs. The planted pairs at r2 = cutsq and one ulp either side
+of it show the decisions are the same bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +25,7 @@ from lammps_kokkos_port_tpu_torch.ops.cell_kernels import (
     lj_cell_dense_reference,
 )
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+from test_torch_pair_kernel_cuda import KEY, boundary_targets, planted_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +113,132 @@ def test_kernel_rejects_bad_input(cuda):
                       prd)
     with pytest.raises(ValueError, match="stencil"):
         lj_cell_dense(key, cl.buckets, cl.stencil[:-1], x, prd)
+
+
+def _stencil(ncells):
+    """[ncell, 27] periodic neighbour cell ids, cellforce's order."""
+    nx, ny, nz = ncells
+    out = []
+    for c in range(nx * ny * nz):
+        cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
+        out.append([(((cx + i) % nx) * ny + (cy + j) % ny) * nz + (cz + k) % nz
+                    for i in (-1, 0, 1) for j in (-1, 0, 1)
+                    for k in (-1, 0, 1)])
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def _buckets(cells_of, ncell, cc, rng):
+    """[ncell+1, cc] buckets, each atom at a lane drawn at random in its
+    cell (empty lanes, == cap, interleaved: not packed)."""
+    cap = len(cells_of)
+    b = np.full((ncell + 1, cc), cap, dtype=np.int32)
+    for c in range(ncell):
+        atoms = np.flatnonzero(cells_of == c)
+        b[c, rng.choice(cc, len(atoms), replace=False)] = atoms
+    return torch.from_numpy(b)
+
+
+def _launch_and_check(key, buckets, stencil, x, prd, dtype):
+    ref = lj_cell_dense_reference(key, buckets, stencil, x, prd)
+    before = lj_cell_dense.launches
+    f = lj_cell_dense(key, buckets, stencil, x, prd)
+    torch.cuda.synchronize()
+    assert lj_cell_dense.launches == before + 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    amax = ref.abs().max().item()
+    torch.testing.assert_close(f, ref, rtol=tol, atol=tol * max(amax, 1e-30))
+    return f, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_full_cell_unpacked(cuda, dtype):
+    """cc 36 with one cell of 36 atoms (its rows 32-35 run in the warp's
+    second row pass) and buckets that are not packed; the rest hold 8-27
+    atoms on jittered sub-lattices."""
+    rng = np.random.default_rng(36)
+    ncells, side, cc = (3, 4, 3), 3.0, 36
+    nx, ny, nz = ncells
+    pos, cells_of = [], []
+    for c in range(nx * ny * nz):
+        n = 36 if c == 4 else 8 + (c * 5) % 20
+        m = 3 if n <= 27 else 4
+        sub = np.stack(np.meshgrid(np.arange(m), np.arange(3), np.arange(3),
+                                   indexing="ij"), -1).reshape(-1, 3)[:n]
+        origin = np.array([c // (ny * nz), (c // nz) % ny, c % nz]) * side
+        pos.append(origin + (sub + 0.5) / [m, 3, 3] * side
+                   + rng.uniform(-0.05, 0.05, (n, 3)))
+        cells_of += [c] * n
+    x = torch.from_numpy(np.concatenate(pos)).to(dtype).to(cuda)
+    buckets = _buckets(np.array(cells_of), nx * ny * nz, cc, rng).to(cuda)
+    prd = torch.tensor([nx * side, ny * side, nz * side], dtype=dtype,
+                       device=cuda)
+    stencil = _stencil(ncells).to(cuda)
+    f, ref = _launch_and_check(KEY, buckets, stencil, x, prd, dtype)
+    assert ref.abs().max().item() > 1.0
+    assert bool((f[np.array(cells_of) == 4].abs().sum(-1) > 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cutoff_boundary_pairs(cuda, dtype):
+    """Pairs planted at r2 = cutsq, one ulp below and one ulp above it: only
+    the pair below is inside the cutoff, in the kernel as in the plain
+    version (the minimum image leaves these displacements as they are)."""
+    pos = planted_pairs(dtype, boundary_targets(dtype))
+    ncells, side, cc = (8, 3, 3), 3.0, 36
+    cells = (pos // side).astype(int)
+    cells_of = (cells[:, 0] * 3 + cells[:, 1]) * 3 + cells[:, 2]
+    rng = np.random.default_rng(7)
+    buckets = _buckets(cells_of, 72, cc, rng).to(cuda)
+    x = torch.from_numpy(pos).to(dtype).to(cuda)
+    prd = torch.tensor([24.0, 9.0, 9.0], dtype=dtype, device=cuda)
+    f, ref = _launch_and_check(KEY, buckets, _stencil(ncells).to(cuda), x,
+                               prd, dtype)
+    inside = ref.abs().sum(-1) > 0
+    assert inside.tolist() == [False, False, True, True, False, False]
+    assert torch.equal(f.abs().sum(-1) > 0, inside)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_atoms_at_box_faces(cuda, dtype):
+    """Atoms on and just across the periodic faces (drifted out of the box
+    since their binning, as between rebuilds), so pairs meet through the
+    minimum image: the kernel's candidate pruning under the minimum image
+    keeps every pair the plain version takes."""
+    rng = np.random.default_rng(9)
+    side, n = 3.0, 3
+    prd_v = n * side
+    faces = np.array([0.0, 1e-6, -0.12, prd_v - 1e-6, prd_v - 0.04,
+                      prd_v + 0.1, 0.3, prd_v - 0.3])
+    pos = rng.uniform(0.0, prd_v, (300, 3))
+    for a in range(3):  # a third of the atoms on a face of each axis
+        sel = rng.choice(300, 100, replace=False)
+        pos[sel, a] = rng.choice(faces, 100)
+    # drop near-coincident atoms: keep the forces finite in f32
+    keep = []
+    for i, p in enumerate(pos):
+        d = pos[keep] - p
+        d -= prd_v * np.round(d / prd_v)
+        if not keep or (d * d).sum(-1).min() > 0.6 ** 2:
+            keep.append(i)
+    pos = pos[keep]
+    cell = np.clip(np.floor(np.clip(pos, 0, prd_v - 1e-9) / side), 0,
+                   n - 1).astype(int)
+    cells_of = (cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]
+    cc = int(np.bincount(cells_of, minlength=27).max())
+    buckets = _buckets(cells_of, 27, cc, rng).to(cuda)
+    x = torch.from_numpy(pos).to(dtype).to(cuda)
+    prd = torch.full((3,), prd_v, dtype=dtype, device=cuda)
+    f, ref = _launch_and_check(KEY, buckets, _stencil((n, n, n)).to(cuda), x,
+                               prd, dtype)
+    assert ref.abs().max().item() > 1.0
+    assert torch.equal(f.abs().sum(-1) > 0, ref.abs().sum(-1) > 0)
+
+
+def test_launch_shape(cuda):
+    """One warp per cell, four cells a block, within the default 48 KB of
+    shared memory."""
+    for dtype in (torch.float32, torch.float64):
+        big = cell_kernels.launch_shape(47 * 23 * 47, dtype)
+        assert big["threads"] == (32, 4)
+        assert big["blocks"] == -(-47 * 23 * 47 // 4)
+        assert 0 < big["smem_bytes"] <= 48 * 1024

@@ -11,6 +11,8 @@ Tolerance: rtol 1e-9 / atol 1e-10 on valid rows, as tests/test_slab_half.py
 (the summation order differs between the Newton-halved and full stencils).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,8 +23,15 @@ from lammps_kokkos_port_tpu.ops import pallas_pair
 from lammps_kokkos_port_tpu.ops import sortedforce as jax_sortedforce
 from lammps_kokkos_port_tpu.presets import lj_melt_sim as jax_lj_melt_sim
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import (
+    SOURCE,
+    check_pad_cutoff,
     lj_cell_force,
     lj_cell_force_reference,
+)
+from lammps_kokkos_port_tpu_torch.ops.sortedforce import (
+    PAD_POS,
+    PAD_STEP,
+    _pad_x,
 )
 
 
@@ -85,3 +94,63 @@ def test_degenerate_grid_raises():
     prd = torch.ones(3, dtype=torch.float64)
     with pytest.raises(ValueError, match=">= 3 cells"):
         lj_cell_force(key, (2, 3, 3), g, g, g, prd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pad_cutoff_raises(dtype):
+    """The CUDA kernel skips pad rows on the grounds that no two pads share
+    a cutoff (in an unshifted axis they differ by a multiple of PAD_STEP):
+    `check_pad_cutoff`, which the wrapper runs before a launch, refuses a
+    cutoff of PAD_STEP or more. The plain version skips nothing, so on the
+    CPU the wrapper takes any cutoff; on the all-pad grid it finds no pair
+    and no force on either side of the bound."""
+    with pytest.raises(ValueError, match="pad spacing"):
+        check_pad_cutoff(PAD_STEP ** 2)
+    check_pad_cutoff(0.999 * PAD_STEP ** 2)
+    g = _pad_x(27 * 8, dtype, "cpu").reshape(27, 8)
+    prd = torch.full((3,), 9.0, dtype=dtype)
+    for cutsq in (0.999 * PAD_STEP ** 2, PAD_STEP ** 2):
+        f = lj_cell_force(("lj", 48.0, 24.0, cutsq), (3, 3, 3), g, g, g, prd)
+        assert torch.equal(f, torch.zeros_like(f))
+
+
+def test_kernel_pad_constants_match_layout():
+    """The CUDA kernel's copy of the sorted layout's pad sentinel (kPadPos,
+    kPadStep in csrc/lj_cell_force.cu) equals ops/sortedforce's."""
+    consts = dict(re.findall(r"constexpr double (kPad\w+) = ([0-9.e+]+);",
+                             SOURCE.read_text()))
+    assert float(consts["kPadPos"]) == PAD_POS
+    assert float(consts["kPadStep"]) == PAD_STEP
+
+
+def test_pads_anywhere_in_a_cell():
+    """The CUDA kernel skips pad rows wherever they sit in a cell: the
+    plain version on the same rows permuted within each cell (pads before
+    live rows) gives each atom the same force and every pad zero."""
+    sim_x, key, ncells, prd = _sorted_melt_with_pads()
+    g = torch.from_numpy(sim_x).t().contiguous().reshape(3, -1, 48)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(48))
+    f = lj_cell_force(key, ncells, g[0], g[1], g[2], prd)
+    gp = g[:, :, perm].contiguous()
+    fp = lj_cell_force(key, ncells, gp[0], gp[1], gp[2], prd)
+    torch.testing.assert_close(fp, f[:, :, perm], rtol=1e-12, atol=1e-12)
+    pad = gp[0] >= 0.5 * PAD_POS
+    assert bool(pad[:, :8].any()) and int(pad.sum()) == 27 * 48 - 864
+    assert torch.equal(fp[:, pad], torch.zeros_like(fp[:, pad]))
+
+
+def _sorted_melt_with_pads():
+    """The 6-cell f64 melt re-sorted at cell_cap 48 (pads at the end of
+    each cell), positions jittered by a seeded +-0.05."""
+    from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+    from lammps_kokkos_port_tpu_torch.prof.grid import resort
+
+    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64,
+                      device="cpu")
+    sim.setup()
+    st, p = resort(sim, 48)
+    x = st.x.numpy().copy()
+    valid = st.valid_mask.numpy()
+    rng = np.random.default_rng(48)
+    x[valid] += rng.uniform(-0.05, 0.05, (int(valid.sum()), 3))
+    return x, sim.pair_style.kernel_key(), p.ncells, st.box.prd
