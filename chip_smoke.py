@@ -19,14 +19,21 @@ checks them on the card:
      run, energy drift and the slope-timed step rate;
   5. the 1M-atom deck (cells=63), f32, 200 steps, same checks, and a
      torch.profiler split of one segment (the kernel, re-binning, rest);
-  6. the two EAM kernels against their plain versions at the eam-32k grid,
-     f32 and f64, positions jittered by a seeded +-0.08 A;
+  6. the two EAM kernels against their plain versions at the eam-32k grid
+     and at the 1M EAM grid (cells 63), f32 and f64, positions jittered by
+     a seeded +-0.08 A: the rho sweep with its fp = F'(rho) epilogue (rho
+     against the plain rho, fp against embedding_fp of it) and without it,
+     and the force sweep; their launch shapes;
   7. the EAM slice on the card against the same slice on the CPU (plain
      versions), cells 6, f64, 10 steps;
   8. the EAM main path: the 32k-atom bench/in.eam deck in f32, setup() +
      run(200, thermo_every=50) (every 1 delay 5 check yes), each EAM
-     kernel launched once per force step, nbuilds > 1, energy drift, the
-     slope-timed step rate, and a torch.profiler split of one segment;
+     kernel launched once per force step (one fused rho+fp launch, one
+     force launch), nbuilds > 1, energy drift, the slope-timed step rate,
+     and a torch.profiler split of one segment, in which embedding_fp must
+     not be called; the same deck through the earlier chain (rho sweep,
+     embedding_fp in eager PyTorch, force sweep) for device ops, device
+     time and host time per step before and after;
   9. the input-deck slice: bench/in.lj with -var x 4 -var y 2 -var z 4
      (1,024,000 atoms) through `script.LammpsScript(list_mode="cell")`,
      f32, the deck's own `run 100`: the cell kernel (K6's port) launched
@@ -170,11 +177,17 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 # lj: displacement 3, r2 5, cutoff 1, 1/r2 1, r6 2, fpair 4, fij 3, +f_i 3,
 # -f_j 3; forward only (P10) drops -f_j; EAM: displacement, r2 and cutoff 9,
 # clamp 2, each Clenshaw series 2 + 3 per coefficient (29 for rho, 28 each
-# for a and b), rho +2; force fpair 4, fij 3, +f_i 3, -f_j 3.
+# for a and b), rho +2; force fpair 4, fij 3, +f_i 3, -f_j 3. The rho
+# sweep's fp epilogue, per valid row: clamp 2, sqrt 1, the argument 2, the
+# Fp_s series (80 coefficients), 2 s and the divide 2.
 LJ_PAIR_OPS = 25
 LJ_FWD_PAIR_OPS = 22
 EAM_RHO_PAIR_OPS = 9 + 2 + (2 + 3 * 29) + 2
 EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
+EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
+# the kernels redesigned on the shared candidate walk (csrc/cell_walk.cuh)
+REDESIGNED = ("lj_cell_force", "lj_cell_dense", "eam_cell_rho",
+              "eam_cell_force")
 # the library call column: no single PyTorch call computes these passes
 LIBRARY_MS = None
 EAM_STEPS = 200
@@ -307,10 +320,13 @@ def one_device_ms(fn) -> float:
     return device_ms({"fn": fn})["fn"]
 
 
-def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype) -> dict:
+def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype,
+             row_ops: int = 0) -> dict:
     """bound_ms / bound_by of a pass doing `pair_ops` operations on each of
-    `pairs` unordered pairs and moving `nbytes` (PEAK_* above)."""
-    t_ops = pairs * pair_ops / PEAK_OPS_PER_S[str(dtype).split(".")[-1]]
+    `pairs` unordered pairs and `row_ops` more, moving `nbytes` (PEAK_*
+    above)."""
+    t_ops = ((pairs * pair_ops + row_ops)
+             / PEAK_OPS_PER_S[str(dtype).split(".")[-1]])
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return {"pairs": pairs, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -528,10 +544,13 @@ def step_rate(sim, k1: int, label: str, reps: int = 5) -> float:
     return per_step
 
 
-def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
-    """Phase 6 on one dtype: both EAM sweeps against their plain versions
-    on the same inputs (the force sweep takes the fp channel computed from
-    the plain rho). Returns {kernel name: numbers} for the kernel line."""
+def eam_kernels_vs_plain(sim, dtype, label: str, plain_reps: int = 5) -> dict:
+    """Phase 6 on one grid and dtype: the fused rho sweep (rho against the
+    plain rho, fp = F'(rho) against embedding_fp of the plain rho), the
+    rho sweep without its epilogue, and the force sweep fed the fp of the
+    plain rho, each against its plain version on the same inputs. Returns
+    {kernel name: numbers} for the kernel line (eam_cell_rho: the fused
+    launch, the one the main path makes)."""
     import torch
 
     from lammps_kokkos_port_tpu_torch.ops import eam_kernels as ek
@@ -543,57 +562,100 @@ def eam_kernels_vs_plain(sim, dtype, label: str) -> dict:
                          dtype=torch.float64) - 0.5) * 0.16
     x = torch.where(st.valid_mask[:, None], st.x.double() + jitter,
                     st.x.double()).to(dtype)
-    g = x.t().contiguous().reshape(3, p.total_cells, p.cell_cap)
+    ncell, cc = p.total_cells, p.cell_cap
+    g = x.t().contiguous().reshape(3, ncell, cc)
     prd = st.box.prd.to(dtype)
     tabs = sim.pair_style.poly_tables
     cutsq = float(sim.pair_style.cutmax) ** 2
     rtab, ftab = ek.rho_tab(tabs, cutsq), ek.force_tab(tabs, cutsq)
     rho_args = (rtab, p.ncells, g[0], g[1], g[2], prd)
+    fused_args = (rtab, ek.fp_tab(tabs), p.ncells, g[0], g[1], g[2],
+                  st.valid_mask, prd)
     rho_ref = ek.eam_cell_rho_reference(*rho_args)
-    fp = embedding_fp(tabs, rho_ref.reshape(-1), st.valid_mask)
-    gfp = fp.to(dtype).reshape(p.total_cells, p.cell_cap)
+    fp_ref = embedding_fp(tabs, rho_ref.reshape(-1), st.valid_mask)
+    gfp = fp_ref.to(dtype).reshape(ncell, cc)
     f_args = (ftab, p.ncells, g[0], g[1], g[2], gfp, prd)
     # tolerances: kernel and plain version make the same cutoff decisions
     # (r2 is rounded alike); the series and the sums round and order
     # differently. atol scaled by max|value| covers cancelling rows.
     rtol = 1e-4 if dtype == torch.float32 else 1e-10
-    rows = p.total_cells * p.cell_cap
+    rho, fp = ek.eam_cell_rho_fp(*fused_args)
+    errs = {"eam_cell_rho": check_close(f"{label} eam_cell_rho_fp rho", rho,
+                                        rho_ref, rtol)}
+    fp_err = check_close(f"{label} eam_cell_rho_fp fp", fp.reshape(-1),
+                         fp_ref, rtol)
+    check_close(f"{label} eam_cell_rho (no epilogue)",
+                ek.eam_cell_rho(*rho_args), rho_ref, rtol)
+    errs["eam_cell_force"] = check_close(
+        f"{label} eam_cell_force", ek.eam_cell_force(*f_args),
+        ek.eam_cell_force_reference(*f_args), rtol)
+    dev = device_ms({"eam_cell_rho": lambda: ek.eam_cell_rho_fp(*fused_args),
+                     "eam_cell_force": lambda: ek.eam_cell_force(*f_args)})
+    plain = {"eam_cell_rho": cuda_ms(
+                 lambda: ek.eam_cell_rho_fp_reference(*fused_args),
+                 reps=plain_reps, warmup=1),
+             "eam_cell_force": cuda_ms(
+                 lambda: ek.eam_cell_force_reference(*f_args),
+                 reps=plain_reps, warmup=1)}
+    rows = ncell * cc
     pairs = grid_pairs(p.ncells, g[0], g[1], g[2], prd, cutsq)
     item = g.element_size()
-    bounds = {"eam_cell_rho": bound_of(pairs, EAM_RHO_PAIR_OPS,
-                                       rows * 4 * item, dtype),
+    bounds = {"eam_cell_rho": bound_of(
+                  pairs, EAM_RHO_PAIR_OPS, rows * (5 * item + 1), dtype,
+                  row_ops=int(st.valid_mask.sum()) * EAM_FP_ROW_OPS),
               "eam_cell_force": bound_of(pairs, EAM_FORCE_PAIR_OPS,
                                          rows * 7 * item, dtype)}
     out = {}
-    for name, fn, plain, args in (
-            ("eam_cell_rho", ek.eam_cell_rho, ek.eam_cell_rho_reference,
-             rho_args),
-            ("eam_cell_force", ek.eam_cell_force,
-             ek.eam_cell_force_reference, f_args)):
-        got = fn(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"{label} {name}: not finite")
-        vmax = ref.abs().max().item()
-        err = (got - ref).abs()
-        bad = int((err > rtol * vmax + rtol * ref.abs()).sum())
-        max_abs = err.max().item()
-        dev_ms = one_device_ms(lambda: fn(*args))
-        plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+    for name in ("eam_cell_rho", "eam_cell_force"):
         b = bounds[name]
-        log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
-            f"({rows} rows), max|value| {vmax:.6g}, "
-            f"max abs err {max_abs:.3e} (rtol {rtol:g}, atol {rtol:g}*max),"
-            f" device {dev_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, {pairs} pairs in the cutoff, bound "
+        extra = (f" (fp: max abs err {fp_err:.3e}, max|fp| "
+                 f"{fp_ref.abs().max().item():.6g})"
+                 if name == "eam_cell_rho" else "")
+        log(f"[kernel] {label} {name}: grid {p.ncells} x cc {cc} "
+            f"({rows} rows), max abs err {errs[name]:.3e}{extra} (rtol "
+            f"{rtol:g}, atol {rtol:g}*max), device {dev[name]:.4f} ms, plain "
+            f"{plain[name]:.4f} ms, {pairs} pairs in the cutoff, bound "
             f"{b['bound_ms']:.4g} ms ({b['bound_by']})")
-        if bad:
-            raise RuntimeError(f"{label} {name}: {bad} values out of "
-                               "tolerance")
-        out[name] = {"max_abs_err": max_abs, "ms": dev_ms,
-                     "device_ms": dev_ms, "plain_ms": plain_ms, **b}
+        out[name] = {"max_abs_err": errs[name], "ms": dev[name],
+                     "device_ms": dev[name], "plain_ms": plain[name], **b}
+    out["eam_cell_rho"]["fp_max_abs_err"] = fp_err
     return out
+
+
+def unfused_force_sorted(style, tabs, state, cl):
+    """The force-only EAM pass as the earlier port chained it: the rho
+    sweep without its epilogue, fp = F'(rho) in eager PyTorch
+    (`embedding_fp`, about 165 launches), the force sweep. For the
+    profile's before-and-after only; the port does not call it."""
+    from lammps_kokkos_port_tpu_torch.ops import eam_kernels as ek
+    from lammps_kokkos_port_tpu_torch.ops import eamdense
+    from lammps_kokkos_port_tpu_torch.ops.sortedforce import planar
+
+    p = cl.params
+    g = planar(state.x).reshape(3, p.total_cells, p.cell_cap)
+    prd = state.box.prd.to(state.dtype)
+    cutsq = float(style.cutmax) ** 2
+    rho = ek.eam_cell_rho(ek.rho_tab(tabs, cutsq), p.ncells, g[0], g[1],
+                          g[2], prd)
+    gfp = eamdense.embedding_fp(tabs, rho.reshape(-1),
+                                state.valid_mask).reshape(rho.shape)
+    f = ek.eam_cell_force(ek.force_tab(tabs, cutsq), p.ncells, g[0], g[1],
+                          g[2], gfp, prd)
+    return f.reshape(3, state.capacity).t().contiguous()
+
+
+@contextlib.contextmanager
+def replaced(targets):
+    """Set module attributes for the duration, without touching the
+    library: [(module, attribute, value), ...]."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    for mod, name, value in targets:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
 
 
 def eam_card_vs_cpu(pot: str) -> None:
@@ -644,14 +706,15 @@ def annotated(targets):
 
 
 def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
-                    kernels, labels) -> None:
+                    kernels, labels) -> dict:
     """torch.profiler over one segment of `nsteps` after a warm-up: device
     time per step of each kernel in `kernels` (by kernel name), of each
     profiler range in `labels` ({range: [(module, function), ...]}, the
     named functions of the step wrapped in that range) and the rest; the
     device idle share against the unprofiled ms/step. The ranges hold only
     PyTorch ops: the trace does not attribute the kernels launched through
-    ctypes to an enclosing range."""
+    ctypes to an enclosing range. Returns the device ms per step of each
+    part, the device busy ms per step and the device ops per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -694,6 +757,8 @@ def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
         f"device ops/step; profiled wall {wall / nsteps * 1e3:.4f} ms/step;"
         f" idle share vs unprofiled {ms_per_step * 1e3:.4f} ms/step: "
         f"{100 * (1 - busy / (ms_per_step * 1e3)):.1f}%")
+    return {"per_step": per, "busy_ms": busy,
+            "ops_per_step": len(ops) / nsteps}
 
 
 @contextlib.contextmanager
@@ -1527,8 +1592,10 @@ def rank(kernels: list, decks: list) -> None:
         per.setdefault(name, []).append(
             (deck, per_step, per_step * (e["device_ms"] - e["bound_ms"])))
     log("[rank] decks' kernels, launches per step x (device_ms - bound_ms)"
-        " at the deck's size, ms per step of each deck: " + "; ".join(
-            f"{name} {sum(t[2] for t in terms):.4f} (" + ", ".join(
+        " at the deck's size, ms per step of each deck ([walk]: redesigned "
+        "on the shared candidate walk): " + "; ".join(
+            f"{name}{' [walk]' if name in REDESIGNED else ''} "
+            f"{sum(t[2] for t in terms):.4f} (" + ", ".join(
                 f"{deck} {n:.3f} x -> {v:.4f}" for deck, n, v in terms) + ")"
             for name, terms in sorted(
                 per.items(), key=lambda kv: -sum(t[2] for t in kv[1]))))
@@ -1552,8 +1619,10 @@ def main() -> int:
     from lammps_kokkos_port_tpu_torch import cli
     from lammps_kokkos_port_tpu_torch.ops import (cell_kernels, cellforce,
                                                   column_kernels, cuda_build,
-                                                  eam_kernels, half_kernels,
-                                                  pair_kernels, sortedforce)
+                                                  eam_kernels, eamdense,
+                                                  half_kernels, pair_kernels,
+                                                  sortedforce)
+    from lammps_kokkos_port_tpu_torch.ops.eamdense import embedding_fp
     from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
                                                    column_half_kernels,
                                                    dynslice_kernels,
@@ -1658,19 +1727,33 @@ def main() -> int:
         cc = eam.nl.params.cell_cap
         log(f"[setup] eam-32k f32 + f64 decks {time.perf_counter() - t0:.1f}"
             f" s, grid {eam.nl.params.ncells} x cc {cc}")
-        # the EAM kernels stage their channels in dynamic shared memory
-        # only (csrc/cell_stencil.cuh launch_shape: cc rounded up to a warp,
-        # 128 / lanes cells per block), which ptxas does not report
-        lanes = -(-cc // 32) * 32
-        cpb = 1 if lanes >= 128 else 128 // lanes
-        log(f"[build] dynamic shared memory per block at cc {cc} ({lanes} x "
-            f"{cpb} threads): " + ", ".join(
-                f"{name} {nch * cpb * cc * 4} B f32 / {nch * cpb * cc * 8} B"
-                f" f64" for name, nch in (("eam_cell_rho", 3),
-                                          ("eam_cell_force", 4))))
         eam_cells = eam_kernels_vs_plain(eam, torch.float32, "eam-32k f32")
         eam_kernels_vs_plain(eam64, torch.float64, "eam-32k f64")
         del eam64
+        # 6b. the same at the 1M EAM grid (one f32 deck; f64 from its
+        # positions), the plain versions timed over fewer calls
+        t0 = time.perf_counter()
+        eam1m = eam_bulk_cu_sim(cells=63, dtype=torch.float32, device=dev,
+                                potential_path=pot, list_mode="sorted")
+        eam1m.setup()
+        p1m = eam1m.nl.params
+        log(f"[setup] eam-1m f32 deck {time.perf_counter() - t0:.1f} s, "
+            f"{eam1m.state.nlocal} atoms, grid {p1m.ncells} x cc "
+            f"{p1m.cell_cap}")
+        for deck in (eam, eam1m):
+            for name in ("eam_cell_rho", "eam_cell_force"):
+                log_walk_launch(name, deck.nl.params.ncells,
+                                deck.nl.params.cell_cap,
+                                lambda dt, n=name, d=deck: (
+                                    eam_kernels.launch_shape(
+                                        n, d.nl.params.ncells, dt)))
+        eam_1m = eam_kernels_vs_plain(eam1m, torch.float32, "eam-1m f32",
+                                      plain_reps=2)
+        eam_kernels_vs_plain(eam1m, torch.float64, "eam-1m f64", plain_reps=2)
+        del eam1m
+        for name, entry in eam_1m.items():
+            eam_cells[name]["at_1m"] = {k: entry[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
         eam_card_vs_cpu(pot)
 
         # 8. the EAM main path: counted launches over the run
@@ -1695,11 +1778,36 @@ def main() -> int:
         raise RuntimeError("EAM run made no distance-checked rebuild")
     check_run(eam, rows, "eam-32k", bound=EAM_DRIFT_BOUND)
     eam_step = step_rate(eam, 50, "eam-32k")
-    profile_segment(eam, 50, eam_step, "eam-32k",
-                    ("eam_cell_rho", "eam_cell_force"),
-                    {"rebin": [(sortedforce, "needs_rebuild"),
-                               (sortedforce, "rebuild_if")],
-                     "fp glue": [(eam_kernels, "embedding_fp")]})
+    eam_kernels_pair = ("eam_cell_rho", "eam_cell_force")
+    rebin = {"rebin": [(sortedforce, "needs_rebuild"),
+                       (sortedforce, "rebuild_if")]}
+    glue_calls = []
+
+    def no_glue(*args, **kwargs):
+        glue_calls.append(1)
+        return embedding_fp(*args, **kwargs)
+
+    # the fp glue is the rho sweep's epilogue: embedding_fp is not called
+    with replaced([(eam_kernels, "embedding_fp", no_glue),
+                   (eamdense, "embedding_fp", no_glue)]):
+        fused = profile_segment(eam, 50, eam_step, "eam-32k",
+                                eam_kernels_pair, rebin)
+    if glue_calls:
+        raise RuntimeError(f"eam-32k: embedding_fp called {len(glue_calls)}"
+                           " times in the profiled segment on the card")
+    # the same deck through the earlier chain, for the before-and-after
+    with replaced([(eam_kernels, "compute_force_sorted",
+                    unfused_force_sorted)]):
+        unfused_step = step_rate(eam, 50, "eam-32k unfused chain")
+        unfused = profile_segment(
+            eam, 50, unfused_step, "eam-32k unfused chain", eam_kernels_pair,
+            {**rebin, "fp glue": [(eamdense, "embedding_fp")]})
+    log(f"[eam-32k device ops per step] unfused chain (rho sweep, "
+        f"embedding_fp, force sweep) {unfused['ops_per_step']:.1f} -> fused "
+        f"{fused['ops_per_step']:.1f}; device busy "
+        f"{unfused['busy_ms']:.4f} -> {fused['busy_ms']:.4f} ms per step; "
+        f"host {unfused_step * 1e3:.4f} -> {eam_step * 1e3:.4f} ms per step "
+        f"(embedding_fp calls in the fused segment: {len(glue_calls)})")
     del sim32, sim1m, gold, eam
 
     with tempfile.TemporaryDirectory() as tmp:

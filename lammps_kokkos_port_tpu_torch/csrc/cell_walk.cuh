@@ -1,6 +1,7 @@
-// The candidate walk of the lj cell kernels (sm_90a): lj_cell_force.cu
-// (the sorted layout) and lj_cell_dense.cu (list mode "cell"). The other
-// cell kernels keep cell_stencil.cuh's `sweep`.
+// The candidate walk of the port's sorted and dense cell kernels (sm_90a):
+// lj_cell_force.cu and eam_cell.cu (the sorted layout, sorted_grid.cuh) and
+// lj_cell_dense.cu (list mode "cell"). The other cell kernels keep
+// cell_stencil.cuh's `sweep`.
 //
 // Unit of work: one warp owns up to 32 rows of one cell (a row pass) and
 // walks that cell's 27 neighbour blocks on its own, with no block-wide
@@ -17,15 +18,25 @@
 //   pass 1: each lane forms r2 for each kept candidate and keeps those
 //           inside the cutoff as bits of one 32-bit mask per tile (in
 //           shared memory, one word per lane);
-//   pass 2: each lane runs the lj body over the set bits of its own masks,
-//           in walk order, two pairs an iteration, so the warp pays for
-//           its longest in-cutoff list instead of the body at every
+//   pass 2: each lane runs the pair body over the set bits of its own
+//           masks, in walk order, B::kPairs pairs an iteration (two give
+//           two independent chains through the body), so the warp pays
+//           for its longest in-cutoff list instead of the body at every
 //           candidate where any lane is inside the cutoff;
 // or with one pass the body sits inside the candidate loop. Pass 2
 // recomputes the displacement and r2 with the same rounded operations as
 // pass 1, so the body sees the bits the cutoff test saw. Candidates are
-// staged as three planes (x, y, z) or, where they carry the atom index, as
-// packed (x, y, z, index) records: one 16-byte shared load in f32.
+// staged as three planes (x, y, z) or, where they carry a fourth word (the
+// atom index, or EAM's fp), as packed (x, y, z, w) records: one 16-byte
+// shared load in f32.
+//
+// The pair body `B` is a template parameter (LjBody below; eam_cell.cu's
+// two bodies):
+//   static constexpr int kAcc;     accumulators per row (3: a force; 1)
+//   static constexpr int kPairs;   pairs an iteration of pass 2 (1 or 2)
+//   T term(const Cand<T>& own, const Cand<T>& c, T r2);  the pair's term
+//   static T part(const T (&d)[3], T term, int a);  its share of acc[a]
+//       (d = own - c)
 
 #pragma once
 
@@ -145,14 +156,18 @@ __device__ __forceinline__ T lj_fpair(T r2, T lj1, T lj2) {
   return r6inv * (lj1 * r6inv - lj2) * r2inv;
 }
 
-template <typename T>
-__device__ __forceinline__ void lj_add(T dx, T dy, T dz, T r2, T lj1, T lj2,
-                                       T (&acc)[3]) {
-  const T fpair = lj_fpair(r2, lj1, lj2);
-  acc[0] += dx * fpair;
-  acc[1] += dy * fpair;
-  acc[2] += dz * fpair;
-}
+// the lj/cut pair body of the walk: the force d * fpair
+template <typename T> struct LjBody {
+  static constexpr int kAcc = 3;
+  static constexpr int kPairs = 2;
+  T lj1, lj2;
+  __device__ T term(const Cand<T>&, const Cand<T>&, T r2) const {
+    return lj_fpair(r2, lj1, lj2);
+  }
+  static __device__ T part(const T (&d)[3], T fpair, int a) {
+    return d[a] * fpair;
+  }
+};
 
 // The own rows' bounding box (over the live lanes of the warp).
 template <typename T> struct Box {
@@ -261,11 +276,12 @@ __device__ __forceinline__ void issue_batch(const G& geo,
   copy_commit();
 }
 
-template <typename T, typename G>
-__device__ __forceinline__ void walk(const G& geo, const Cand<T>& own,
-                                     bool live, int self_tile, T lj1, T lj2,
-                                     T cutsq, const SmemOf<T, G>& sm,
-                                     T (&acc)[3]) {
+template <typename T, typename G, typename B>
+__device__ __forceinline__ void walk(const G& geo, const B& body,
+                                     const Cand<T>& own, bool live,
+                                     int self_tile, T cutsq,
+                                     const SmemOf<T, G>& sm,
+                                     T (&acc)[B::kAcc]) {
   constexpr int kB = SmemOf<T, G>::kTiles;
   const int lane = threadIdx.x;
   const int ntiles = 27 * geo.tiles;
@@ -316,28 +332,42 @@ __device__ __forceinline__ void walk(const G& geo, const Cand<T>& own,
         if (t0 + g == self_tile) m &= ~self_bit;
         masks[base + lane] = m;
       }
-      // pass 2: the body over this lane's own list, in walk order, two
-      // pairs an iteration (two independent chains through the divide)
+      // pass 2: the body over this lane's own list, in walk order
       int g = 0;
       unsigned m = masks[lane];
-      for (;;) {
-        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-        if (m == 0) break;
-        const int s1 = g * kTile + __ffs(m) - 1;
-        m &= m - 1;
-        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-        const bool two = m != 0;
-        const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
-        m &= m - 1;
-        const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
-        T d1[3], d2[3];
-        const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
-        const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
-        const T f1 = lj_fpair(r1, lj1, lj2), f2 = lj_fpair(r2, lj1, lj2);
+      if constexpr (B::kPairs == 1) {
+        for (;;) {
+          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+          if (m == 0) break;
+          const Cand<T> c = sm.get(g * kTile + __ffs(m) - 1);
+          m &= m - 1;
+          T d[3];
+          const T r = geo.dist(own, c, d[0], d[1], d[2]);
+          const T f = body.term(own, c, r);
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          acc[a] += d1[a] * f1;
-          if (two) acc[a] += d2[a] * f2;
+          for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
+        }
+      } else {
+        // two pairs an iteration: two independent chains through the body
+        for (;;) {
+          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+          if (m == 0) break;
+          const int s1 = g * kTile + __ffs(m) - 1;
+          m &= m - 1;
+          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+          const bool two = m != 0;
+          const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
+          m &= m - 1;
+          const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
+          T d1[3], d2[3];
+          const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
+          const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
+          const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+#pragma unroll
+          for (int a = 0; a < B::kAcc; ++a) {
+            acc[a] += B::part(d1, f1, a);
+            if (two) acc[a] += B::part(d2, f2, a);
+          }
         }
       }
     } else {
@@ -350,8 +380,12 @@ __device__ __forceinline__ void walk(const G& geo, const Cand<T>& own,
           const Cand<T> c = sm.get(g * kTile + j);
           T dx, dy, dz;
           const T r2 = geo.dist(own, c, dx, dy, dz);
-          if (r2 < cutsq && !(self >> j & 1u) && geo.other(own, c))
-            lj_add(dx, dy, dz, r2, lj1, lj2, acc);
+          if (r2 < cutsq && !(self >> j & 1u) && geo.other(own, c)) {
+            const T d[3] = {dx, dy, dz};
+            const T f = body.term(own, c, r2);
+#pragma unroll
+            for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
+          }
         }
       }
     }

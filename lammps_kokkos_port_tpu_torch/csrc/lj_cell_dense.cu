@@ -214,7 +214,8 @@ __global__ void CELL_WALK_BOUNDS lj_cell_dense_kernel(
     }
     T acc[3] = {T(0), T(0), T(0)};
     if (__any_sync(0xffffffffu, live))
-      cell_walk::walk(geo, own, live, -1, lj1, lj2, cutsq, sm, acc);
+      cell_walk::walk(geo, cell_walk::LjBody<T>{lj1, lj2}, own, live, -1,
+                      cutsq, sm, acc);
     if (live) {
       f[3 * me] = acc[0];
       f[3 * me + 1] = acc[1];

@@ -1,24 +1,30 @@
 """The two dense-EAM cell sweeps: CUDA for Hopper, plus their plain twins.
 
 Port of `lammps_kokkos_port_tpu/ops/pallas_eam.py`. Its two Pallas TPU
-kernels become two CUDA kernels in `csrc/eam_cell.cu`:
+kernels, and the fp glue XLA ran between them, become two CUDA kernels in
+`csrc/eam_cell.cu`:
 
-  `rho_pallas` (pallas_eam.py:200)   -> `eam_cell_rho`:
-      rho_i = sum_j g(u_ij), u = r^2;
+  `rho_pallas` (pallas_eam.py:200) and the glue fp = F'(rho)
+  (pallas_eam.py:253-260)            -> `eam_cell_rho_fp` (and
+      `eam_cell_rho`, the same kernel without its fp epilogue):
+      rho_i = sum_j g(u_ij), u = r^2, fp_i = F'(rho_i);
   `force_pallas` (pallas_eam.py:219) -> `eam_cell_force`:
       f_i = sum_j dx_ij * fpair, fpair = -((fp_i + fp_j) a(u) + b(u)),
 
 with g, a, b the Chebyshev fits of ops/eamdense, evaluated by Clenshaw on
-u clamped to the fits' range. Both take the full 27-cell stencil (the
-Pallas kernels are Newton-halved; see the kernel source for why).
-`compute_force_sorted` chains them: rho sweep, fp = F'(rho) in plain
-PyTorch between the sweeps (the JAX package left it to XLA), force sweep.
-One kernel pair serves every grid size (no 300k-row dispatch).
+u clamped to the fits' range, and F' the embedding fit of `embedding_fp`.
+Both take the full 27-cell stencil (the Pallas kernels are Newton-halved;
+see the kernel source for why). `compute_force_sorted` chains them: one
+rho+fp launch, one force launch. One kernel pair serves every grid size
+(no 300k-row dispatch).
 
-CPU tensors go to the plain PyTorch twins `eam_cell_rho_reference` and
-`eam_cell_force_reference`; CUDA tensors go to the kernels, built with
-nvcc at first use (ops/cuda_build), or raise. Every kernel launch adds one
-to the wrapper's `launches`.
+CPU tensors go to the plain PyTorch twins `eam_cell_rho_reference` (then
+`embedding_fp`) and `eam_cell_force_reference`; CUDA tensors go to the
+kernels, built with nvcc at first use (ops/cuda_build), or raise. Every
+launch of a kernel adds one to its counter: `eam_cell_rho.launches` (from
+either rho wrapper) and `eam_cell_force.launches`. The kernels skip pad
+rows by position, which needs a cutoff below the pad spacing: on a CUDA
+tensor both wrappers raise otherwise (`pair_kernels.check_pad_cutoff`).
 """
 
 from __future__ import annotations
@@ -30,11 +36,13 @@ import torch
 
 from . import cuda_build
 from .eamdense import clenshaw, embedding_fp
-from .pair_kernels import check_grid, check_launch, stencil
+from .pair_kernels import (check_grid, check_launch, check_pad_cutoff,
+                           stencil, walk_launch)
 
 SOURCE = cuda_build.CSRC / "eam_cell.cu"
 NG = 29   # g coefficients the kernel takes (ops/eamdense.DEG + 1)
 NAB = 28  # a and b coefficients (derivative series)
+NFP = 80  # Fp_s coefficients (derivative series of the DEG_EMBED fit)
 
 
 def rho_tab(tabs: dict, cutsq: float) -> tuple:
@@ -51,6 +59,15 @@ def force_tab(tabs: dict, cutsq: float) -> tuple:
     return (tuple(float(c) for c in tabs["a"]),
             tuple(float(c) for c in tabs["b"]), float(u_lo), float(u_hi),
             cutsq)
+
+
+def fp_tab(tabs: dict) -> tuple:
+    """(Fp_s coefficients, rho_lo, rho_hi, s_lo, s_hi): the constants of
+    fp = F'(rho), as `embedding_fp` reads them from the tables."""
+    rho_lo, rho_hi = tabs["rho_range"]
+    s_lo, s_hi = tabs["s_range"]
+    return (tuple(float(c) for c in tabs["Fp_s"]), float(rho_lo),
+            float(rho_hi), float(s_lo), float(s_hi))
 
 
 def eam_cell_rho_reference(tab, ncells, gx, gy, gz, prd):
@@ -89,20 +106,48 @@ def eam_cell_force_reference(tab, ncells, gx, gy, gz, gfp, prd):
     return torch.stack(out)
 
 
+def eam_cell_rho_fp_reference(tab, ftab, ncells, gx, gy, gz, valid, prd):
+    """The fused sweep's plain twin: `eam_cell_rho_reference`, then
+    `embedding_fp` (0 where `valid` is false). Returns (rho, fp), each
+    [ncells, cc]."""
+    rho = eam_cell_rho_reference(tab, ncells, gx, gy, gz, prd)
+    coeffs, rho_lo, rho_hi, s_lo, s_hi = ftab
+    fp = embedding_fp({"Fp_s": coeffs, "rho_range": (rho_lo, rho_hi),
+                       "s_range": (s_lo, s_hi)}, rho,
+                      valid.reshape(rho.shape))
+    return rho, fp
+
+
+_PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_DBL = ctypes.POINTER(ctypes.c_double)
+# the C entry points' argument types, <stem>_f32 and <stem>_f64 alike
+ARGTYPES = {
+    "eam_cell_rho": ([_PTR] * 7 + [_I32] * 4 + [_DBL] + [_F64] * 3 + [_DBL]
+                     + [_F64] * 4 + [_PTR]),
+    "eam_cell_force": ([_PTR] * 8 + [_I32] * 4 + [_DBL] * 2 + [_F64] * 3
+                       + [_PTR])}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (once per source and flag set) and load the kernel library."""
     lib = cuda_build.load(SOURCE)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    dbl = ctypes.POINTER(ctypes.c_double)
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"eam_cell_rho_{dt}")
-        fn.argtypes = [ptr] * 5 + [i32] * 4 + [dbl] + [f64] * 3 + [ptr]
-        fn.restype = i32
-        fn = getattr(lib, f"eam_cell_force_{dt}")
-        fn.argtypes = [ptr] * 8 + [i32] * 4 + [dbl] * 2 + [f64] * 3 + [ptr]
-        fn.restype = i32
+    for stem, types in ARGTYPES.items():
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"{stem}_{dt}")
+            fn.argtypes = types
+            fn.restype = _I32
+        fn = getattr(lib, f"{stem}_shape")
+        fn.argtypes = [_I32, _I32, _PTR]
+        fn.restype = _I32
     return lib
+
+
+def launch_shape(name: str, ncells, dtype) -> dict:
+    """The launch `name` ("eam_cell_rho" or "eam_cell_force") makes on the
+    grid `ncells` in `dtype` (builds the library)."""
+    nx, ny, nz = ncells
+    return walk_launch(_library(), name, nx * ny * nz, dtype)
 
 
 def _coeffs(c, n: int, name: str):
@@ -116,31 +161,73 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_valid(valid, gx):
+    if (valid.dtype != torch.bool or valid.device != gx.device
+            or valid.numel() != gx.numel()):
+        raise ValueError("valid must be a bool mask with one entry per grid "
+                         "row, on the grid's device")
+
+
+def _rho_launch(tab, ftab, ncells, gx, gy, gz, valid, prd):
+    """One launch of the rho sweep; with `ftab` its fp epilogue too.
+    Returns (rho, fp or None)."""
+    check_launch((gx, gy, gz), prd)
+    g_c, u_lo, u_hi, cutsq = tab
+    check_pad_cutoff(cutsq)
+    g_arr = _coeffs(g_c, NG, "g")
+    rho = torch.empty_like(gx)
+    fp = fp_arr = valid_ptr = None
+    fp_consts = (0.0,) * 4
+    if ftab is not None:
+        fp_arr = _coeffs(ftab[0], NFP, "Fp_s")
+        fp_consts = ftab[1:]
+        valid = valid.reshape(gx.shape).contiguous()
+        valid_ptr = valid.data_ptr()
+        fp = torch.empty_like(gx)
+    fn = (_library().eam_cell_rho_f32 if gx.dtype == torch.float32
+          else _library().eam_cell_rho_f64)
+    with torch.cuda.device(gx.device):
+        err = fn(gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), prd.data_ptr(),
+                 valid_ptr, rho.data_ptr(),
+                 None if fp is None else fp.data_ptr(), *ncells,
+                 gx.shape[1], g_arr, u_lo, u_hi, cutsq, fp_arr, *fp_consts,
+                 _stream(gx))
+    if err != 0:
+        raise RuntimeError(f"eam_cell_rho launch failed: CUDA error {err}")
+    eam_cell_rho.launches += 1
+    return rho, fp
+
+
 def eam_cell_rho(tab, ncells, gx, gy, gz, prd):
     """EAM density of every row of the cell-major grid.
 
     tab: `rho_tab(...)`; ncells: the (nx, ny, nz) grid, each >= 3; gx, gy,
     gz: [nx*ny*nz, cc] positions with cell id (cx*ny+cy)*nz+cz; prd: [3]
-    box lengths. Returns rho [ncells, cc]. Every launch of the CUDA kernel
-    adds one to `eam_cell_rho.launches`.
+    box lengths. Returns rho [ncells, cc]. On a CUDA tensor it launches the
+    rho sweep without its fp epilogue, adding one to
+    `eam_cell_rho.launches`.
     """
     check_grid(ncells, (gx, gy, gz), prd)
     if gx.device.type == "cpu":
         return eam_cell_rho_reference(tab, ncells, gx, gy, gz, prd)
-    check_launch((gx, gy, gz), prd)
-    g_c, u_lo, u_hi, cutsq = tab
-    g_arr = _coeffs(g_c, NG, "g")
-    rho = torch.empty_like(gx)
-    fn = (_library().eam_cell_rho_f32 if gx.dtype == torch.float32
-          else _library().eam_cell_rho_f64)
-    with torch.cuda.device(gx.device):
-        err = fn(gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), prd.data_ptr(),
-                 rho.data_ptr(), *ncells, gx.shape[1], g_arr, u_lo, u_hi,
-                 cutsq, _stream(gx))
-    if err != 0:
-        raise RuntimeError(f"eam_cell_rho launch failed: CUDA error {err}")
-    eam_cell_rho.launches += 1
-    return rho
+    return _rho_launch(tab, None, ncells, gx, gy, gz, None, prd)[0]
+
+
+def eam_cell_rho_fp(tab, ftab, ncells, gx, gy, gz, valid, prd):
+    """EAM density and fp = F'(rho) of every row, in one sweep.
+
+    tab: `rho_tab(...)`; ftab: `fp_tab(...)`; valid: bool, one entry per
+    row (the state's `valid_mask`): fp is 0 where it is false; the rest as
+    `eam_cell_rho`. Returns (rho, fp), each [ncells, cc]. On a CUDA tensor
+    it launches the rho sweep with its fp epilogue, adding one to
+    `eam_cell_rho.launches`.
+    """
+    check_grid(ncells, (gx, gy, gz), prd)
+    _check_valid(valid, gx)
+    if gx.device.type == "cpu":
+        return eam_cell_rho_fp_reference(tab, ftab, ncells, gx, gy, gz, valid,
+                                         prd)
+    return _rho_launch(tab, ftab, ncells, gx, gy, gz, valid, prd)
 
 
 def eam_cell_force(tab, ncells, gx, gy, gz, gfp, prd):
@@ -156,6 +243,7 @@ def eam_cell_force(tab, ncells, gx, gy, gz, gfp, prd):
         return eam_cell_force_reference(tab, ncells, gx, gy, gz, gfp, prd)
     check_launch((gx, gy, gz, gfp), prd)
     a_c, b_c, u_lo, u_hi, cutsq = tab
+    check_pad_cutoff(cutsq)
     a_arr, b_arr = _coeffs(a_c, NAB, "a"), _coeffs(b_c, NAB, "b")
     ncell, cc = gx.shape
     out = torch.empty((3, ncell, cc), dtype=gx.dtype, device=gx.device)
@@ -177,8 +265,9 @@ eam_cell_force.launches = 0
 
 
 def compute_force_sorted(style, tabs, state, cl):
-    """Force-only dense EAM on a SortedCells state through the two sweeps.
-    Returns f [cap, 3] in the sorted layout."""
+    """Force-only dense EAM on a SortedCells state through the two sweeps:
+    rho and fp = F'(rho) in one, then the forces. Returns f [cap, 3] in the
+    sorted layout."""
     from .sortedforce import planar
 
     p = cl.params
@@ -189,10 +278,8 @@ def compute_force_sorted(style, tabs, state, cl):
     prd = state.box.prd.to(dt)
     cutsq = float(style.cutmax) ** 2
 
-    rho = eam_cell_rho(rho_tab(tabs, cutsq), p.ncells, g[0], g[1], g[2], prd)
-    # fp = F'(rho) per row: a small elementwise pass between the sweeps
-    fp = embedding_fp(tabs, rho.reshape(-1), state.valid_mask)
-    gfp = fp.to(dt).reshape(ntot, cc)
+    _, gfp = eam_cell_rho_fp(rho_tab(tabs, cutsq), fp_tab(tabs), p.ncells,
+                             g[0], g[1], g[2], state.valid_mask, prd)
     f = eam_cell_force(force_tab(tabs, cutsq), p.ncells, g[0], g[1], g[2],
                        gfp, prd)
     return f.reshape(3, cap).t().contiguous()

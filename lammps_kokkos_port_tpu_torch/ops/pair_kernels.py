@@ -18,7 +18,7 @@ instead of walking them, which gives the plain version's result only while
 no pad lies within the cutoff of another row: on a CUDA tensor
 `lj_cell_force` raises on a cutoff of PAD_STEP or more
 (`check_pad_cutoff`); the kernel checks the box's part of the argument
-itself (csrc/lj_cell_force.cu).
+itself (csrc/sorted_grid.cuh).
 """
 
 from __future__ import annotations
@@ -133,17 +133,18 @@ def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
 
 
 def check_pad_cutoff(cutsq: float) -> None:
-    """The kernel's pad skip is exact only while no pad lies within the
-    cutoff of another pad, in any frame the stencil shifts a candidate
-    into. In a frame where one axis is not shifted, two pads differ by a
-    nonzero multiple of PAD_STEP in that axis, so a cutoff below PAD_STEP
-    keeps them apart; the frames shifted in all three axes and the real
-    rows are the box's part of the argument, which the kernel checks on
-    the card (csrc/lj_cell_force.cu), walking every row as the plain
+    """The sorted-layout kernels' pad skip (lj_cell_force, the two EAM
+    sweeps) is exact only while no pad lies within the cutoff of another
+    pad, in any frame the stencil shifts a candidate into. In a frame where
+    one axis is not shifted, two pads differ by a nonzero multiple of
+    PAD_STEP in that axis, so a cutoff below PAD_STEP keeps them apart; the
+    frames shifted in all three axes and the real rows are the box's part
+    of the argument, which the kernels check on the card
+    (csrc/sorted_grid.cuh), walking every row as the plain
     version does where it fails. The plain version skips nothing and
     needs no such check."""
     if not cutsq < PAD_STEP ** 2:
-        raise ValueError(f"lj cell kernel: cutoff {cutsq ** 0.5:g} >= the "
+        raise ValueError(f"cell kernel: cutoff {cutsq ** 0.5:g} >= the "
                          f"pad spacing {PAD_STEP:g} of the sorted layout")
 
 

@@ -27,51 +27,24 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..ops import cell_kernels, cuda_build, pair_kernels
 from ..presets import lj_melt_sim
+from .redesign import (SEED, card, check, device_times, jittered,
+                       parent_library, registers)
 from .timing import say
 
-SEED = 87287
-# a trace may miss the device events of a ctypes launch: try again
-TRACE_ATTEMPTS = 5
-
-
-def registers(source: Path) -> list:
-    """ptxas's register counts of a source's kernels, from its build log
-    (f32 and f64 in the compiler's order)."""
-    log = cuda_build.lib_path(source).with_suffix(".log")
-    if not log.exists():
-        return []
-    return [int(line.split("Used ")[1].split()[0])
-            for line in log.read_text().splitlines() if "Used " in line]
-
-
-def parent_library(source: Path) -> ctypes.CDLL:
-    """The earlier tree's library of `source`, its two entry points bound
-    as this tree's are."""
-    lib = cuda_build.load(source)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    nptr, nint = (7, 4) if source.stem == "lj_cell_force" else (5, 3)
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"{source.stem}_{suffix}")
-        fn.argtypes = [ptr] * nptr + [i32] * nint + [f64] * 3 + [ptr]
-        fn.restype = i32
-    return lib
+_PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# the two kernels' C entry points, the same in both trees
+ARGTYPES = {"lj_cell_force": [_PTR] * 7 + [_I32] * 4 + [_F64] * 3 + [_PTR],
+            "lj_cell_dense": [_PTR] * 5 + [_I32] * 3 + [_F64] * 3 + [_PTR]}
 
 
 def _jittered(sim, dtype):
-    st = sim.state
-    gen = torch.Generator(device=st.device).manual_seed(SEED)
-    jitter = (torch.rand(st.x.shape, generator=gen, device=st.device,
-                         dtype=torch.float64) - 0.5) * 0.1
-    return torch.where(st.valid_mask[:, None], st.x.double() + jitter,
-                       st.x.double()).to(dtype)
+    return jittered(sim, dtype, 0.05)
 
 
 def force_calls(sim, dtype, parent) -> tuple:
@@ -125,57 +98,18 @@ def dense_calls(sim, dtype, parent) -> tuple:
              "new": lambda: cell_kernels.lj_cell_dense(*args)})
 
 
-def check(label: str, got, ref, dtype) -> float:
-    """got within rtol * (max|ref| + |ref|) of ref; the max abs error."""
-    torch.cuda.synchronize()
-    rtol = 1e-4 if dtype == torch.float32 else 1e-10
-    err = (got - ref).abs()
-    vmax = ref.abs().max().item()
-    bad = int((err > rtol * vmax + rtol * ref.abs()).sum())
-    if bad or not bool(torch.isfinite(got).all()):
-        raise RuntimeError(f"{label}: {bad} values out of tolerance")
-    return err.max().item()
-
-
-def device_times(calls: dict, rounds: int, inner: int) -> dict:
-    """Device time per call (ms) of each of `calls`: the summed device-op
-    time of `inner` calls in one torch.profiler trace, the calls in turns,
-    the median of `rounds`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    times = {k: [] for k in calls}
-    for _ in range(rounds):
-        for k, fn in calls.items():
-            for _ in range(TRACE_ATTEMPTS):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(inner):
-                        fn()
-                    torch.cuda.synchronize()
-                us = sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA)
-                if us > 0:
-                    break
-            else:
-                raise RuntimeError(f"no device time in the traces of {k}")
-            times[k].append(us / inner / 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
-
-
 def main(parent: str, rounds: int = 5, inner: int = 20,
          out: str | None = None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("lj_redesign needs a CUDA device")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = card()
     say(smi)
     new_src = (pair_kernels.SOURCE, cell_kernels.SOURCE)
     old_src = tuple(Path(parent) / s.name for s in new_src)
     cuda_build.build(*new_src, *old_src)
-    libs = {s.stem: parent_library(s) for s in old_src}
+    libs = {s.stem: parent_library(s, {s.stem: ARGTYPES[s.stem]})
+            for s in old_src}
     regs = {f"{s.stem} {tree}": registers(s)
             for tree, srcs in (("parent", old_src), ("new", new_src))
             for s in srcs}

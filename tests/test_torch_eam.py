@@ -13,6 +13,7 @@ exactly 0. Energy and virial of the thermo path: rtol 1e-10.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -81,9 +82,10 @@ def jax_sorted(pot):
     return sim, st, style, port_state
 
 
-def _close(got, ref, valid):
-    """Valid rows within RTOL / ATOL_REL*max, padding rows exactly 0."""
-    assert np.abs(ref[valid]).max() > 0.1  # jittered: values are real
+def _close(got, ref, valid, least=0.1):
+    """Valid rows within RTOL / ATOL_REL*max, padding rows exactly 0; the
+    largest valid |ref| above `least` (jittered: the values are real)."""
+    assert np.abs(ref[valid]).max() > least
     np.testing.assert_allclose(got[valid], ref[valid], rtol=RTOL,
                                atol=ATOL_REL * np.abs(ref[valid]).max())
     np.testing.assert_array_equal(got[~valid], 0.0)
@@ -129,15 +131,16 @@ def test_poly_tables_match_jax(pot):
     assert port.poly_tables is port.poly_tables  # built once per style
 
 
-def test_sweep_twins_match_pallas_kernels(jax_sorted):
-    """eam_cell_rho_reference against rho_pallas, and
-    eam_cell_force_reference against force_pallas, fed the same fp
-    channel."""
+@pytest.fixture(scope="module")
+def jax_sweeps(jax_sorted):
+    """The JAX package's sorted sweep on the jittered state: rho from
+    rho_pallas (interpret mode), fp from compute_force_sorted's glue
+    (pallas_eam.py:253-260) and the forces of force_pallas fed that fp;
+    the port's tables and its planar grid of the same state."""
     sim, st, style, port_state = jax_sorted
     p = sim.nl.params
     nx, ny, nz = p.ncells
     cc, cap = p.cell_cap, st.capacity
-    valid = np.asarray(st.valid_mask)
     tabs = jax_eamdense.build_poly_tables(sim.pair_style)
     cutsq = float(sim.pair_style.cutmax) ** 2
     rtab = eam_kernels.rho_tab(style.poly_tables, cutsq)
@@ -156,20 +159,97 @@ def test_sweep_twins_match_pallas_kernels(jax_sorted):
     fx, fy, fz = pallas_eam.force_pallas(ftab, p.ncells, cap, gx, gy, gz, gi,
                                          fp.reshape(nx * ny, nz, cc), prd)
     f_ref = np.stack([np.asarray(a).reshape(-1) for a in (fx, fy, fz)], -1)
-
     pg = sf.planar(port_state.x).reshape(3, p.total_cells, cc)
-    pprd = port_state.box.prd
-    before = (eam_kernels.eam_cell_rho.launches,
-              eam_kernels.eam_cell_force.launches)
-    rho = eam_kernels.eam_cell_rho(rtab, p.ncells, pg[0], pg[1], pg[2], pprd)
-    gfp = torch.from_numpy(np.array(fp)).reshape(p.total_cells, cc)
-    f = eam_kernels.eam_cell_force(ftab, p.ncells, pg[0], pg[1], pg[2], gfp,
-                                   pprd)
+    return {"rtab": rtab, "ftab": ftab, "ncells": p.ncells, "g": pg,
+            "prd": port_state.box.prd, "valid": port_state.valid_mask,
+            "rho": np.asarray(rho_ref).reshape(-1),
+            "fp": np.array(fp).reshape(-1), "f": f_ref}
+
+
+def _launches():
+    return (eam_kernels.eam_cell_rho.launches,
+            eam_kernels.eam_cell_force.launches)
+
+
+def test_sweep_twins_match_pallas_kernels(jax_sorted, jax_sweeps):
+    """eam_cell_rho_reference against rho_pallas, and
+    eam_cell_force_reference against force_pallas, fed the same fp
+    channel."""
+    st = jax_sorted[1]
+    r = jax_sweeps
+    valid = np.asarray(st.valid_mask)
+    pg, pprd = r["g"], r["prd"]
+    before = _launches()
+    rho = eam_kernels.eam_cell_rho(r["rtab"], r["ncells"], pg[0], pg[1],
+                                   pg[2], pprd)
+    gfp = torch.from_numpy(r["fp"]).reshape(pg.shape[1:])
+    f = eam_kernels.eam_cell_force(r["ftab"], r["ncells"], pg[0], pg[1],
+                                   pg[2], gfp, pprd)
     # CPU tensors: the plain twins, no kernel launch
-    assert before == (eam_kernels.eam_cell_rho.launches,
-                      eam_kernels.eam_cell_force.launches)
-    _close(rho.reshape(-1).numpy(), np.asarray(rho_ref).reshape(-1), valid)
-    _close(f.reshape(3, -1).t().numpy(), f_ref, valid)
+    assert before == _launches()
+    _close(rho.reshape(-1).numpy(), r["rho"], valid)
+    _close(f.reshape(3, -1).t().numpy(), r["f"], valid)
+
+
+def test_fused_rho_fp_twin_matches_pallas_and_glue(jax_sorted, jax_sweeps):
+    """eam_cell_rho_fp (the rho sweep with fp = F'(rho) in its epilogue)
+    against rho_pallas followed by the JAX package's fp glue; fp is
+    exactly 0 on the pad rows (`_close`)."""
+    style = jax_sorted[2]
+    r = jax_sweeps
+    valid = np.asarray(jax_sorted[1].valid_mask)
+    pg = r["g"]
+    before = _launches()
+    rho, fp = eam_kernels.eam_cell_rho_fp(
+        r["rtab"], eam_kernels.fp_tab(style.poly_tables), r["ncells"], pg[0],
+        pg[1], pg[2], r["valid"], r["prd"])
+    assert before == _launches()
+    assert rho.shape == fp.shape == pg.shape[1:]
+    _close(rho.reshape(-1).numpy(), r["rho"], valid)
+    _close(fp.reshape(-1).numpy(), r["fp"], valid, least=0.01)
+    assert (~valid).sum() > 0
+
+
+def test_fp_follows_the_valid_mask(jax_sorted, jax_sweeps):
+    """fp is 0 exactly where the mask is false, pads and real rows alike,
+    and the fp of the other rows does not depend on the mask."""
+    style = jax_sorted[2]
+    r = jax_sweeps
+    pg = r["g"]
+    ftab = eam_kernels.fp_tab(style.poly_tables)
+    assert ftab[0] == tuple(style.poly_tables["Fp_s"])
+    assert len(ftab[0]) == eam_kernels.NFP
+    valid = r["valid"].clone()
+    real = torch.nonzero(valid).reshape(-1)
+    valid[real[::7]] = False
+    args = (r["rtab"], ftab, r["ncells"], pg[0], pg[1], pg[2])
+    _, fp_all = eam_kernels.eam_cell_rho_fp(*args, r["valid"], r["prd"])
+    _, fp = eam_kernels.eam_cell_rho_fp(*args, valid, r["prd"])
+    fp, fp_all = fp.reshape(-1), fp_all.reshape(-1)
+    assert torch.equal(fp[~valid], torch.zeros_like(fp[~valid]))
+    assert torch.equal(fp[valid], fp_all[valid])
+    assert bool((fp[valid] != 0).all())
+    with pytest.raises(ValueError, match="valid"):
+        eam_kernels.eam_cell_rho_fp(*args, valid.to(torch.uint8), r["prd"])
+    with pytest.raises(ValueError, match="valid"):
+        eam_kernels.eam_cell_rho_fp(*args, valid[:-1], r["prd"])
+
+
+def test_kernel_sources_share_the_pad_constants():
+    """Both sorted-layout kernels read the pad sentinel from one header
+    (csrc/sorted_grid.cuh), whose kPadPos and kPadStep equal
+    ops/sortedforce's; neither source keeps a copy of its own."""
+    from lammps_kokkos_port_tpu_torch.ops import pair_kernels
+
+    header = eam_kernels.SOURCE.parent / "sorted_grid.cuh"
+    consts = dict(re.findall(r"constexpr double (kPad\w+) = ([0-9.e+]+);",
+                             header.read_text()))
+    assert (float(consts["kPadPos"]), float(consts["kPadStep"])) == (
+        sf.PAD_POS, sf.PAD_STEP)
+    for source in (eam_kernels.SOURCE, pair_kernels.SOURCE):
+        text = source.read_text()
+        assert '#include "sorted_grid.cuh"' in text
+        assert "kPadPos =" not in text and "kPadStep =" not in text
 
 
 @pytest.mark.parametrize("dispatch", ["pallas", "roll"])
@@ -227,3 +307,8 @@ def test_non_cpu_tensors_never_reach_the_twins(pot):
     with pytest.raises(NotImplementedError, match="device"):
         eam_kernels.eam_cell_force(eam_kernels.force_tab(tabs, 24.5),
                                    (3, 3, 3), g, g, g, g, prd)
+    valid = torch.ones(27 * 8, dtype=torch.bool, device="meta")
+    with pytest.raises(NotImplementedError, match="device"):
+        eam_kernels.eam_cell_rho_fp(eam_kernels.rho_tab(tabs, 24.5),
+                                    eam_kernels.fp_tab(tabs), (3, 3, 3), g, g,
+                                    g, valid, prd)

@@ -115,10 +115,13 @@ def test_pad_cutoff_raises(dtype):
 
 
 def test_kernel_pad_constants_match_layout():
-    """The CUDA kernel's copy of the sorted layout's pad sentinel (kPadPos,
-    kPadStep in csrc/lj_cell_force.cu) equals ops/sortedforce's."""
+    """The CUDA kernels' copy of the sorted layout's pad sentinel (kPadPos,
+    kPadStep in csrc/sorted_grid.cuh, which lj_cell_force.cu includes)
+    equals ops/sortedforce's."""
+    assert '#include "sorted_grid.cuh"' in SOURCE.read_text()
+    header = SOURCE.parent / "sorted_grid.cuh"
     consts = dict(re.findall(r"constexpr double (kPad\w+) = ([0-9.e+]+);",
-                             SOURCE.read_text()))
+                             header.read_text()))
     assert float(consts["kPadPos"]) == PAD_POS
     assert float(consts["kPadStep"]) == PAD_STEP
 

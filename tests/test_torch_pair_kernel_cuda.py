@@ -158,17 +158,17 @@ def test_pad_cutoff_raises(cuda):
     assert lj_cell_force.launches == before
 
 
-def planted_pairs(dtype, targets, spacing=8.0):
+def planted_pairs(dtype, targets, spacing=8.0, own0=(3.5, 1.5, 1.5)):
     """Positions of len(targets) pairs, pair k at r2 == targets[k] exactly
-    as `rn_r2` rounds it: own at (3.5 + spacing k, 1.5, 1.5), the
-    candidate about (2.3, 0.93, 0.31) below it, found by a search over the
-    ulps of its y and z. Pairs sit `spacing` apart in x, beyond each
-    other's cutoff. Returns a [2 len(targets), 3] float64 array of values
-    exact in `dtype`."""
+    as `rn_r2` rounds it: own at own0 + (spacing k, 0, 0), the candidate
+    2.3 below it in x and about 0.95 and 0.31 of the rest of the distance
+    below it in y and z, found by a search over the ulps of its y and z.
+    Pairs sit `spacing` apart in x, beyond each other's cutoff. Returns a
+    [2 len(targets), 3] float64 array of values exact in `dtype`."""
     np_t = np.float32 if dtype == torch.float32 else np.float64
     out = []
     for k, target in enumerate(targets):
-        own = np.array([3.5 + spacing * k, 1.5, 1.5], dtype=np_t)
+        own = np.array([own0[0] + spacing * k, own0[1], own0[2]], dtype=np_t)
         cx = own[0] - np_t(2.3)
         dx = float(own[0] - cx)
         rest = np.sqrt(float(target) - dx * dx)
