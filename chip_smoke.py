@@ -55,10 +55,14 @@ checks them on the card:
      and asm_only's staging loads counted in its SASS (cuobjdump);
  14. the Newton-half entry point, `prof.plane_half.main` at cells 20 and 63
      (the labels of prof_v3_32k.py and prof_v3_iso.py), with K8's and
-     P10's launches counted over it; K8 against its plain version (32k f32
-     and f64, 1M f32) and against the full-stencil lj kernel, P10 against
-     its plain version (1M f32), and the three kernels' times on the same
-     1M inputs;
+     P10's launches counted over it and their launch shapes; K8 and P10
+     against their plain versions and K8 against the full-stencil lj
+     kernel (32k and 1M, f32 and f64), with the three kernels' times on
+     the same inputs, and K8 against its plain version and the lj kernel
+     on the 1M deck's own positions after run(200) (the two kernels agree
+     wherever their plain versions do: no component apart on the jittered
+     planes, at most 8 on the deck, each within one pair's force at the
+     cutoff);
  15. the Newton-half column family, `prof.kernel_iso`, `kernel_writeonce`,
      `halfv2` and `zchunk` `main` at cells 20 (the labels of
      prof_kernel_iso.py, prof_kernel_writeonce.py, prof_halfv2.py and
@@ -187,7 +191,7 @@ EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
 EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
 # the kernels redesigned on the shared candidate walk (csrc/cell_walk.cuh)
 REDESIGNED = ("lj_cell_force", "lj_cell_dense", "eam_cell_rho",
-              "eam_cell_force")
+              "eam_cell_force", "lj_plane_half", "lj_plane_half_fwd")
 # the library call column: no single PyTorch call computes these passes
 LIBRARY_MS = None
 EAM_STEPS = 200
@@ -272,47 +276,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-# traces of one round before device_ms gives up: torch.profiler can return
-# a trace without the device events of kernels launched through ctypes
-# (seen on an H100 for P9 asm_only, P5 noreverse, and twice in a row for
-# P1's 2-microsecond kernel)
-TRACE_ATTEMPTS = 5
-
-
 def device_ms(fns: dict, rounds: int = 3, inner: int = 20) -> dict:
     """Device time per call of each of `fns`, in ms: torch.profiler's
     summed duration of the device ops of `inner` calls, over `inner`; the
-    fns take turns, `rounds` times, and the median is kept. Unlike an
-    event pair around the calls it holds no gap in which the device waits
-    for the host, which at the 32k grid is as long as a kernel. A round
-    whose trace holds no device op is traced again (TRACE_ATTEMPTS)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    fns take turns, `rounds` times, and the median is kept
+    (prof/redesign.device_times: a warm-up step with the profiler on, and a
+    trace that lost device records taken again and logged as
+    `[device_ms]`). Unlike an event pair around the calls it holds no gap
+    in which the device waits for the host, which at the 32k grid is as
+    long as a kernel."""
+    from lammps_kokkos_port_tpu_torch.prof.redesign import device_times
 
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    for _ in range(rounds):
-        for k, fn in fns.items():
-            for attempt in range(TRACE_ATTEMPTS):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(inner):
-                        fn()
-                    torch.cuda.synchronize()
-                us = sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA)
-                if us > 0:
-                    break
-                log(f"[device_ms] the trace of {k} shows no device time "
-                    f"(attempt {attempt + 1} of {TRACE_ATTEMPTS})")
-            else:
-                raise RuntimeError(f"device_ms: the trace of {k} shows no "
-                                   "device time")
-            times[k].append(us / inner / 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+    return device_times(fns, rounds, inner)
 
 
 def one_device_ms(fn) -> float:
@@ -1103,23 +1078,34 @@ def phase_sorted_ablate(dev) -> dict:
 
 def phase_plane_half(dev) -> dict:
     """14. prof.plane_half.main at cells 20 and 63 (32k and 1M atoms), with
-    the launches of K8 and P10 counted over both; then K8 against its twin
-    (32k f32 and f64, 1M f32) and against the port's full-stencil kernel
-    (both sizes), P10 against its twin (1M f32), all on jittered planes, and
-    the times of K8, P10 and lj_cell_force on the same 1M inputs. Returns
-    the kernel line's entries."""
+    the launches of K8 and P10 counted over both; then K8 and P10 against
+    their twins and K8 against the port's full-stencil kernel, at 32k and
+    1M, f32 and f64, on jittered planes, with the device times of K8, P10
+    and lj_cell_force on the same inputs; and K8 against its twin and
+    lj_cell_force on the 1M deck's own positions after run(200) (see
+    against_full for the components where the two twins differ). Returns
+    the kernel line's entries (1M f32 at the top, every size and type
+    under "sizes")."""
     import torch
 
     from lammps_kokkos_port_tpu_torch.ops import half_kernels as hk
-    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import (
+        lj_cell_force, lj_cell_force_reference)
     from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
     from lammps_kokkos_port_tpu_torch.prof import plane_half
+    from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
 
     sims = {}
     for cells in (20, 63):
         sims[cells] = lj_melt_sim(cells=cells, t_init=T_INIT, seed=SEED,
                                   dtype=torch.float32, device=dev)
         sims[cells].setup()
+        p = sims[cells].nl.params
+        for name, react in (("lj_plane_half", True),
+                            ("lj_plane_half_fwd", False)):
+            log_walk_launch(name, p.ncells, p.cell_cap,
+                            lambda dt, p=p, r=react: hk.launch_shape(
+                                p.ncells, dt, react=r))
     counted = {"lj_plane_half": hk.lj_plane_half_force,
                "lj_plane_half_fwd": hk.lj_plane_half_fwd}
     for fn in counted.values():
@@ -1138,43 +1124,98 @@ def phase_plane_half(dev) -> dict:
                        for v in r.values())):
         raise RuntimeError(f"plane_half: launches {launches}, {res}")
 
-    out = {}
-    for cells, dtype, rtol in ((20, torch.float32, 1e-4),
-                               (20, torch.float64, 1e-10),
-                               (63, torch.float32, 1e-4)):
-        sp = jittered_planes(sims[cells], dtype)
-        size = "32k" if cells == 20 else "1M"
+    def flat3(forces):
+        return torch.stack([a.reshape(-1) for a in forces])
+
+    def against_full(label, sp, rtol, k8_ms, max_apart):
+        """K8 against lj_cell_force on `sp`, each held to its twin: they
+        agree wherever their twins do. A pair at the cutoff across the
+        periodic box can fall on either side of it, since the two stencils
+        round its shifted coordinate in opposite frames: the components
+        where the twins differ are counted, at most `max_apart` of them,
+        and there the kernels differ by no more than one pair's force at
+        the cutoff. The max abs difference where the twins agree, the
+        count, K8's device time `k8_ms` and lj_cell_force's."""
         args = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
-        pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
-        nbytes = sp.cap * 7 * sp.buf.element_size()
-        k8 = timed_check(f"K8 lj_plane_half {size} {dtype}",
-                         hk.lj_plane_half_force,
-                         hk.lj_plane_half_force_reference, args, rtol,
-                         bound_of(pairs, LJ_PAIR_OPS, nbytes, dtype))
-        full = lj_cell_force(sp.key, sp.ncells, *sp.flat[:3], sp.prd)
-        err = check_close(f"K8 against lj_cell_force {size} {dtype}",
-                          [a.reshape(-1) for a in
-                           hk.lj_plane_half_force(*args)],
-                          [a.reshape(-1) for a in full], rtol)
-        full_dev = one_device_ms(lambda: lj_cell_force(
-            sp.key, sp.ncells, *sp.flat[:3], sp.prd))
-        log(f"[prof-plane] {size} {dtype}: K8 device time "
-            f"{k8['device_ms']:.4f} ms against the full-stencil "
-            f"lj_cell_force {full_dev:.4f} ms on the same inputs "
-            f"({k8['device_ms'] / full_dev:.3f}x); max abs difference "
-            f"{err:.3e}")
-        if cells == 63:
-            fwd = timed_check(f"P10 lj_plane_half_fwd 1M {dtype}",
-                              hk.lj_plane_half_fwd,
-                              hk.lj_plane_half_fwd_reference, args, rtol,
-                              bound_of(pairs, LJ_FWD_PAIR_OPS, nbytes,
-                                       dtype))
-            out["lj_plane_half"] = {"launches": launches["lj_plane_half"],
-                                    "at": "1M f32", **k8,
-                                    "lj_cell_force_device_ms": full_dev}
-            out["lj_plane_half_fwd"] = {
-                "launches": launches["lj_plane_half_fwd"], "at": "1M f32",
-                **fwd}
+        full = (sp.key, sp.ncells, *sp.flat[:3], sp.prd)
+        _, lj1, lj2, cutsq = sp.key
+        r6inv = cutsq ** -3
+        cut_force = abs(r6inv * (lj1 * r6inv - lj2)) / math.sqrt(cutsq)
+        ref = flat3(lj_cell_force_reference(*full))
+        got = flat3(lj_cell_force(*full))
+        check_close(f"lj_cell_force {label}", got, ref, rtol)
+        k8 = flat3(hk.lj_plane_half_force(*args))
+        tol = rtol * (ref.abs().max() + ref.abs())
+        twins = (flat3(hk.lj_plane_half_force_reference(*args)) - ref).abs()
+        same = twins <= tol
+        err = check_close(f"K8 against lj_cell_force {label}", k8[same],
+                          got[same], rtol)
+        apart = int((~same).sum())
+        gap = (k8 - got).abs()[~same]
+        worst = gap.max().item() if apart else 0.0
+        if apart > max_apart or bool((gap > cut_force + tol[~same]).any()):
+            raise RuntimeError(
+                f"K8 against lj_cell_force {label}: {apart} components "
+                f"where the twins differ (at most {max_apart}), the kernels "
+                f"apart there by up to {worst:.3e} against one pair's force "
+                f"at the cutoff, {cut_force:.3e}")
+        full_ms = one_device_ms(lambda: lj_cell_force(*full))
+        log(f"[prof-plane] {label}: K8 device time {k8_ms:.4f} ms against "
+            f"the full-stencil lj_cell_force {full_ms:.4f} ms on the same "
+            f"inputs ({k8_ms / full_ms:.3f}x); max abs difference "
+            f"{err:.3e} where their twins agree, {apart} components where "
+            f"the twins differ (pairs at the cutoff across the periodic "
+            f"box; at most {max_apart}), the kernels apart there by up to "
+            f"{worst:.3e} (one pair's force at the cutoff {cut_force:.3e})")
+        return {"device_ms": k8_ms, "lj_cell_force_device_ms": full_ms,
+                "max_abs_diff": err, "twins_differ": apart}
+
+    sizes = {"lj_plane_half": {}, "lj_plane_half_fwd": {}}
+    keep = ("max_abs_err", "device_ms", "plain_ms", "pairs", "bound_ms",
+            "bound_by")
+    for cells, size in ((20, "32k"), (63, "1M")):
+        for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            sp = jittered_planes(sims[cells], dtype)
+            tag = f"{size} {'f32' if dtype == torch.float32 else 'f64'}"
+            args = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
+            pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
+            nbytes = sp.cap * 7 * sp.buf.element_size()
+            for name, kernel, plain, ops in (
+                    ("lj_plane_half", hk.lj_plane_half_force,
+                     hk.lj_plane_half_force_reference, LJ_PAIR_OPS),
+                    ("lj_plane_half_fwd", hk.lj_plane_half_fwd,
+                     hk.lj_plane_half_fwd_reference, LJ_FWD_PAIR_OPS)):
+                r = timed_check(f"{'K8' if ops == LJ_PAIR_OPS else 'P10'} "
+                                f"{name} {tag}", kernel, plain, args, rtol,
+                                bound_of(pairs, ops, nbytes, dtype))
+                sizes[name][tag] = {k: r[k] for k in keep}
+            k8 = sizes["lj_plane_half"][tag]
+            k8["against lj_cell_force"] = against_full(
+                tag, sp, rtol, k8["device_ms"], max_apart=0)
+            del sp
+    # the 1M deck's own positions: the melt after run(200), no jitter; its
+    # pairs at the cutoff across the box put a few components apart
+    deck = sims[63]
+    deck.run(200, thermo_every=200)
+    sp = sorted_planes(deck)
+    args = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
+    pairs = grid_pairs(sp.ncells, *sp.flat[:3], sp.prd, sp.key[-1])
+    r = timed_check("K8 lj_plane_half 1M deck f32", hk.lj_plane_half_force,
+                    hk.lj_plane_half_force_reference, args, 1e-4,
+                    bound_of(pairs, LJ_PAIR_OPS,
+                             sp.cap * 7 * sp.buf.element_size(),
+                             torch.float32))
+    sizes["lj_plane_half"]["1M deck f32"] = {
+        **{k: r[k] for k in keep},
+        "against lj_cell_force": against_full("1M deck f32", sp, 1e-4,
+                                              r["device_ms"], max_apart=8)}
+    del sims, deck, sp
+    out = {}
+    for name in sizes:
+        top = sizes[name]["1M f32"]
+        out[name] = {"launches": launches[name], "at": "1M f32",
+                     "ms": top["device_ms"], **{k: top[k] for k in keep},
+                     "library_ms": LIBRARY_MS, "sizes": sizes[name]}
     return out
 
 

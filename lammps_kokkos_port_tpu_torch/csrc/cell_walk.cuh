@@ -4,11 +4,13 @@
 // cell_stencil.cuh's `sweep`.
 //
 // Unit of work: one warp owns up to 32 rows of one cell (a row pass) and
-// walks that cell's 27 neighbour blocks on its own, with no block-wide
-// barrier; a cell with more rows runs its further row passes in the same
-// warp. A neighbour block's candidates are cut into tiles of 32 (tiles =
-// cc / 32 rounded up), so a walk is 27 * tiles tiles in stencil order. The
-// warp stages kBatch tiles at a time: their positions are copied
+// walks that cell's stencil entries on its own (G::kEntries neighbour
+// blocks: the 27 of the full stencil, or the 14 of the half stencil in
+// lj_plane_half.cu), with no block-wide barrier; a cell with more rows
+// runs its further row passes in the same warp. A neighbour block's
+// candidates are cut into tiles of 32 (tiles = cc / 32 rounded up), so a
+// walk is kEntries * tiles tiles in stencil order. The warp stages
+// G::kBatch tiles at a time: their positions are copied
 // asynchronously (cp.async) while it computes the batch before, then each
 // tile's kept candidates are packed in walk order into shared memory: the
 // live ones (not pads or empty lanes) that may lie within the cutoff of
@@ -30,6 +32,12 @@
 // atom index, or EAM's fp), as packed (x, y, z, w) records: one 16-byte
 // shared load in f32.
 //
+// Reactions (Newton-half passes): with a reaction policy `R` whose kOn is
+// true, the pack step keeps each kept candidate's row beside its record
+// (the geometry's kRows) and pass 2 hands every pair to R::pair, which
+// lands the reaction on the candidate's row (lj_plane_half.cu).
+// NoReactions compiles that out.
+//
 // The pair body `B` is a template parameter (LjBody below; eam_cell.cu's
 // two bodies):
 //   static constexpr int kAcc;     accumulators per row (3: a force; 1)
@@ -48,8 +56,8 @@ namespace cell_walk {
 
 using cell_stencil::Rn;
 
-constexpr int kBatch = 9;        // tiles per batch in f32: one x-plane of
-                                 // the stencil at cc <= 32
+constexpr int kBatch = 9;        // tiles per batch in f32 of the full
+                                 // stencil: one x-plane at cc <= 32
 constexpr int kTile = 32;        // candidates per tile, rows per row pass
 constexpr int kWarpsPerBlock = 4;
 
@@ -82,21 +90,22 @@ __device__ __forceinline__ int bits_int(double v) {
 
 // Shared memory of one warp: the batch's kept candidates, its raw planes
 // (the asynchronous copies land there, P planes per tile), one mask word
-// per (tile, lane) and the tiles' candidate counts. A batch is kBatch
-// tiles in f32, a third of that in f64 (the same bytes). With P = 3 the
-// candidates are three planes x, y, z (one 4- or 8-byte shared load per
-// component); with P = 4 packed (x, y, z, w) records (one 16-byte load in
-// f32, two in f64).
-template <typename T, int P> struct WarpSmem {
+// per (tile, lane), the tiles' candidate counts and, with Rows, each kept
+// candidate's row. A batch is Batch tiles in f32, a third of that in f64
+// (the same bytes). With P = 3 the candidates are three planes x, y, z
+// (one 4- or 8-byte shared load per component); with P = 4 packed (x, y,
+// z, w) records (one 16-byte load in f32, two in f64).
+template <typename T, int P, int Batch, bool Rows> struct WarpSmem {
   static constexpr bool kPacked = P == 4;
   static constexpr int kTiles =
-      sizeof(T) == 4 ? kBatch : (kBatch + 2) / 3;
+      sizeof(T) == 4 ? Batch : (Batch + 2) / 3;
   static constexpr int kSlots = kTiles * kTile;
   static constexpr size_t kStage = size_t(P) * kSlots * sizeof(T);
   static constexpr size_t kRaw = kStage;
   static constexpr size_t kMasks = size_t(kSlots) * 4;
   static constexpr size_t kBounds = ((kTiles * 4 + 15) / 16) * 16;
-  static constexpr size_t kBytes = kStage + kRaw + kMasks + kBounds;
+  static constexpr size_t kRows = Rows ? size_t(kSlots) * 4 : 0;
+  static constexpr size_t kBytes = kStage + kRaw + kMasks + kBounds + kRows;
   static_assert(kWarpsPerBlock * kBytes <= 48 * 1024,
                 "a block's shared memory stays within the default 48 KB");
 
@@ -108,6 +117,9 @@ template <typename T, int P> struct WarpSmem {
   }
   __device__ int* bounds() const {
     return reinterpret_cast<int*>(base + kStage + kRaw + kMasks);
+  }
+  __device__ int* rows() const {
+    return reinterpret_cast<int*>(base + kStage + kRaw + kMasks + kBounds);
   }
 
   __device__ void put(int i, const Cand<T>& c) const {
@@ -139,7 +151,7 @@ template <typename T, int P> struct WarpSmem {
 };
 
 template <typename T, typename G>
-using SmemOf = WarpSmem<T, G::kPlanes>;
+using SmemOf = WarpSmem<T, G::kPlanes, G::kBatch, G::kRows>;
 
 // this warp's shared memory (the block's warps sit side by side)
 template <typename T, typename G>
@@ -231,6 +243,10 @@ __device__ __forceinline__ void copy_wait_all() {
 
 // The walk of one row pass. `G` supplies the geometry of one kernel:
 //   int cc, tiles;                   rows per cell, tiles per block
+//   static constexpr int kEntries;   stencil entries (27, or 14: half)
+//   static constexpr int kBatch;     tiles per batch in f32
+//   static constexpr bool kRows;     keep each kept candidate's row (for
+//                                    R)
 //   static constexpr int kPlanes;    raw and staged planes (3: x, y, z;
 //                                    4: and the atom index, packed)
 //   static constexpr bool kTwoPass;  the body in pass 2, or in the loop
@@ -249,10 +265,23 @@ __device__ __forceinline__ void copy_wait_all() {
 //   T dist(const Cand<T>& own, const Cand<T>& c, T& dx, T& dy, T& dz);
 //       the displacement own - c and r2, rounded as the plain twin
 //   bool other(const Cand<T>& own, const Cand<T>& c);  not the self pair
+//       (or, in a Newton-half pass, the pair rule)
+//   int row(e, k, lane);             candidate `lane` of tile k's row (read
+//                                    only where R is on)
 // `self_tile`: the tile whose candidate at this lane is the row itself
 // (masked by its packed position), or -1 where `other` tells the self
 // pair. Every lane of the warp calls it; lanes whose row is not `live`
 // stage but add nothing.
+//
+// The reaction policy `R` (NoReactions, or lj_plane_half.cu's):
+//   static constexpr bool kOn;
+//   template <typename B> void pair(sm, int slot, const T (&d)[3], T f);
+//       a pair of pass 2 with the kept candidate at `slot`, whose row is
+//       sm.rows()[slot]
+struct NoReactions {
+  static constexpr bool kOn = false;
+};
+
 template <typename T, typename G>
 __device__ __forceinline__ void issue_batch(const G& geo,
                                             const typename G::Entry& mine,
@@ -276,18 +305,113 @@ __device__ __forceinline__ void issue_batch(const G& geo,
   copy_commit();
 }
 
-template <typename T, typename G, typename B>
+// Pass 1 and pass 2 (or the one pass) of a batch, for a live row.
+template <typename T, typename G, typename B, typename R>
+__device__ __forceinline__ void batch_passes(const G& geo, const B& body,
+                                             const Cand<T>& own, int t0,
+                                             int nb, int self_tile,
+                                             unsigned self_bit, T cutsq,
+                                             const SmemOf<T, G>& sm,
+                                             T (&acc)[B::kAcc],
+                                             const R& react) {
+  const int lane = threadIdx.x;
+  int* bounds = sm.bounds();
+  if constexpr (G::kTwoPass) {
+    // pass 1: the in-cutoff candidates of each tile, as a mask per lane
+    unsigned* masks = sm.masks();
+    for (int g = 0; g < nb; ++g) {
+      const int base = g * kTile;
+      const int n = bounds[g];
+      unsigned m = 0;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const Cand<T> c = sm.get(base + j);
+        T dx, dy, dz;
+        const T r2 = geo.dist(own, c, dx, dy, dz);
+        if (r2 < cutsq && geo.other(own, c)) m |= 1u << j;
+      }
+      if (t0 + g == self_tile) m &= ~self_bit;
+      masks[base + lane] = m;
+    }
+    // pass 2: the body over this lane's own list, in walk order
+    int g = 0;
+    unsigned m = masks[lane];
+    if constexpr (B::kPairs == 1) {
+      for (;;) {
+        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+        if (m == 0) break;
+        const int s1 = g * kTile + __ffs(m) - 1;
+        const Cand<T> c = sm.get(s1);
+        m &= m - 1;
+        T d[3];
+        const T r = geo.dist(own, c, d[0], d[1], d[2]);
+        const T f = body.term(own, c, r);
+#pragma unroll
+        for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
+        if constexpr (R::kOn) react.template pair<B>(sm, s1, d, f);
+      }
+    } else {
+      // two pairs an iteration: two independent chains through the body
+      for (;;) {
+        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+        if (m == 0) break;
+        const int s1 = g * kTile + __ffs(m) - 1;
+        m &= m - 1;
+        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+        const bool two = m != 0;
+        const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
+        m &= m - 1;
+        const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
+        T d1[3], d2[3];
+        const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
+        const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
+        const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+#pragma unroll
+        for (int a = 0; a < B::kAcc; ++a) {
+          acc[a] += B::part(d1, f1, a);
+          if (two) acc[a] += B::part(d2, f2, a);
+        }
+        if constexpr (R::kOn) {
+          react.template pair<B>(sm, s1, d1, f1);
+          if (two) react.template pair<B>(sm, s2, d2, f2);
+        }
+      }
+    }
+  } else {
+    static_assert(!R::kOn, "reactions need the two-pass walk");
+    // one pass: the body inside the candidate loop, taken by the warp
+    // wherever any lane is inside the cutoff
+    for (int g = 0; g < nb; ++g) {
+      const int n = bounds[g];
+      const unsigned self = (t0 + g == self_tile) ? self_bit : 0u;
+      for (int j = 0; j < n; ++j) {
+        const Cand<T> c = sm.get(g * kTile + j);
+        T dx, dy, dz;
+        const T r2 = geo.dist(own, c, dx, dy, dz);
+        if (r2 < cutsq && !(self >> j & 1u) && geo.other(own, c)) {
+          const T d[3] = {dx, dy, dz};
+          const T f = body.term(own, c, r2);
+#pragma unroll
+          for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename G, typename B, typename R = NoReactions>
 __device__ __forceinline__ void walk(const G& geo, const B& body,
                                      const Cand<T>& own, bool live,
                                      int self_tile, T cutsq,
                                      const SmemOf<T, G>& sm,
-                                     T (&acc)[B::kAcc]) {
+                                     T (&acc)[B::kAcc],
+                                     const R& react = R{}) {
   constexpr int kB = SmemOf<T, G>::kTiles;
   const int lane = threadIdx.x;
-  const int ntiles = 27 * geo.tiles;
+  const int ntiles = G::kEntries * geo.tiles;
   T* raw = sm.raw();
   int* bounds = sm.bounds();
-  const typename G::Entry mine = geo.entry(min(lane, 26));
+  const typename G::Entry mine = geo.entry(min(lane, G::kEntries - 1));
   const Box<T> box = own_box(own, live);
   const T near_cutsq = cutsq * (T(1) + T(1.0 / 4096));
   issue_batch(geo, mine, 0, min(kB, ntiles), raw);
@@ -299,14 +423,17 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
     unsigned self_bit = 0;
     int s = t0 / geo.tiles, k = t0 - s * geo.tiles;
     for (int g = 0; g < nb; ++g) {
+      const typename G::Entry e = geo.fetch(mine, s);
       Cand<T> c;
       const bool keep =
-          geo.pack(geo.fetch(mine, s), k, lane, raw + g * G::kPlanes * kTile,
-                   &c) &&
+          geo.pack(e, k, lane, raw + g * G::kPlanes * kTile, &c) &&
           geo.near(box, c, near_cutsq);
       const unsigned kept = __ballot_sync(0xffffffffu, keep);
       const int pos = __popc(kept & ((1u << lane) - 1u));
       if (keep) sm.put(g * kTile + pos, c);
+      if constexpr (R::kOn) {
+        if (keep) sm.rows()[g * kTile + pos] = geo.row(e, k, lane);
+      }
       if (t0 + g == self_tile) self_bit = 1u << pos;
       if (lane == 0) bounds[g] = __popc(kept);
       if (++k == geo.tiles) k = 0, ++s;
@@ -315,80 +442,8 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
     if (t0 + kB < ntiles)  // the next batch's copies fly meanwhile
       issue_batch(geo, mine, t0 + kB, min(kB, ntiles - t0 - kB), raw);
     if (!live) continue;
-    if constexpr (G::kTwoPass) {
-      // pass 1: the in-cutoff candidates of each tile, as a mask per lane
-      unsigned* masks = sm.masks();
-      for (int g = 0; g < nb; ++g) {
-        const int base = g * kTile;
-        const int n = bounds[g];
-        unsigned m = 0;
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const Cand<T> c = sm.get(base + j);
-          T dx, dy, dz;
-          const T r2 = geo.dist(own, c, dx, dy, dz);
-          if (r2 < cutsq && geo.other(own, c)) m |= 1u << j;
-        }
-        if (t0 + g == self_tile) m &= ~self_bit;
-        masks[base + lane] = m;
-      }
-      // pass 2: the body over this lane's own list, in walk order
-      int g = 0;
-      unsigned m = masks[lane];
-      if constexpr (B::kPairs == 1) {
-        for (;;) {
-          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-          if (m == 0) break;
-          const Cand<T> c = sm.get(g * kTile + __ffs(m) - 1);
-          m &= m - 1;
-          T d[3];
-          const T r = geo.dist(own, c, d[0], d[1], d[2]);
-          const T f = body.term(own, c, r);
-#pragma unroll
-          for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
-        }
-      } else {
-        // two pairs an iteration: two independent chains through the body
-        for (;;) {
-          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-          if (m == 0) break;
-          const int s1 = g * kTile + __ffs(m) - 1;
-          m &= m - 1;
-          while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-          const bool two = m != 0;
-          const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
-          m &= m - 1;
-          const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
-          T d1[3], d2[3];
-          const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
-          const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
-          const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
-#pragma unroll
-          for (int a = 0; a < B::kAcc; ++a) {
-            acc[a] += B::part(d1, f1, a);
-            if (two) acc[a] += B::part(d2, f2, a);
-          }
-        }
-      }
-    } else {
-      // one pass: the body inside the candidate loop, taken by the warp
-      // wherever any lane is inside the cutoff
-      for (int g = 0; g < nb; ++g) {
-        const int n = bounds[g];
-        const unsigned self = (t0 + g == self_tile) ? self_bit : 0u;
-        for (int j = 0; j < n; ++j) {
-          const Cand<T> c = sm.get(g * kTile + j);
-          T dx, dy, dz;
-          const T r2 = geo.dist(own, c, dx, dy, dz);
-          if (r2 < cutsq && !(self >> j & 1u) && geo.other(own, c)) {
-            const T d[3] = {dx, dy, dz};
-            const T f = body.term(own, c, r2);
-#pragma unroll
-            for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
-          }
-        }
-      }
-    }
+    batch_passes(geo, body, own, t0, nb, self_tile, self_bit, cutsq, sm, acc,
+                 react);
   }
 }
 

@@ -84,6 +84,9 @@ template <typename T> struct DenseCells {
   struct Entry {
     int nc;
   };
+  static constexpr int kEntries = 27;
+  static constexpr int kBatch = cell_walk::kBatch;
+  static constexpr bool kRows = false;
   // the atom indices land before the positions are copied by them
   static constexpr int kPlanes = 4;
   static constexpr bool kTwoPass = false;

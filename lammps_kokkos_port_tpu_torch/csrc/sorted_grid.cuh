@@ -1,12 +1,17 @@
 // The sorted cell-major layout as the cell_walk.cuh kernels read it
-// (sm_90a): lj_cell_force.cu (K1-K3's port) and eam_cell.cu (K4/K5's).
+// (sm_90a): lj_cell_force.cu (K1-K3's port), eam_cell.cu (K4/K5's) and,
+// over the half stencil (HalfGrid), lj_plane_half.cu (K8/P10's).
 //
 // Layout: per-row planes x, y, z (and for some kernels a fourth per-row
-// value w) are [ncells, cc] rows, cell id (cx*ny + cy)*nz + cz. The full
-// 27-cell stencil with no Newton halving: one warp per cell walks its 27
-// neighbour blocks, positions shifted by +-prd where the offset wraps
-// across the box (no minimum image), and each lane writes its row's sum
-// once: deterministic, no atomics.
+// value w) are [ncells, cc] rows, cell id (cx*ny + cy)*nz + cz.
+// SortedGrid: the full 27-cell stencil with no Newton halving: one warp
+// per cell walks its 27 neighbour blocks, positions shifted by +-prd where
+// the offset wraps across the box (no minimum image), and each lane writes
+// its row's sum once: deterministic, no atomics. HalfGrid: the 14 blocks
+// of the half stencil, shifted alike, each pair once.
+//
+// The premise below holds for HalfGrid too: its frames are some of the
+// full stencil's.
 //
 // Pads. The sorted layout has no validity channel: a pad row holds the
 // position sentinel PAD_POS + row * PAD_STEP on the space diagonal
@@ -82,6 +87,9 @@ template <typename T, int P> struct SortedGrid {
     int base;
     T shx, shy, shz;
   };
+  static constexpr int kEntries = 27;
+  static constexpr int kBatch = cell_walk::kBatch;
+  static constexpr bool kRows = false;
   static constexpr int kPlanes = P;
   static constexpr bool kTwoPass = true;
   static constexpr bool kIndexFirst = false;
@@ -146,6 +154,71 @@ template <typename T, int P> struct SortedGrid {
 
   // the self pair is masked by its packed position in the own tile
   __device__ bool other(const Cand<T>&, const Cand<T>&) const { return true; }
+};
+
+// The half stencil's geometry on the same layout, for the Newton-half
+// passes (lj_plane_half.cu): entry s is cell_stencil::kHalf[s], the own
+// cell first (entry 0) and then the 13 lexicographically positive
+// offsets, so each unordered pair of cells meets once. Records are packed
+// (x, y, z, id), the float ids of the plane layout; the ids of entries
+// s > 0 are offset by `idcap` (-1 stays -1), and `other` is the pair rule
+// own_id < cand_id, which takes each unordered pair of rows once and
+// masks the self pair (self_tile -1). With React the walk keeps each kept
+// candidate's row, where its reaction lands. A batch is 7 tiles in f32:
+// the 14 entries at cc <= 32 in two batches, and six blocks of four warps
+// on an SM where a 9-tile batch and the rows would fit four.
+template <typename T, bool React> struct HalfGrid : SortedGrid<T, 4> {
+  using Base = SortedGrid<T, 4>;
+  T idcap;
+
+  struct Entry : Base::Entry {
+    int s;
+  };
+  static constexpr int kEntries = cell_stencil::kHalfBlocks;
+  static constexpr int kBatch = 7;
+  static constexpr bool kRows = React;
+
+  __device__ Entry entry(int s) const {
+    Entry e;
+    const int wx =
+        wrap_dim(this->cx + cell_stencil::kHalf[s][0], this->nx, this->px,
+                 &e.shx);
+    const int wy =
+        wrap_dim(this->cy + cell_stencil::kHalf[s][1], this->ny, this->py,
+                 &e.shy);
+    const int wz =
+        wrap_dim(this->cz + cell_stencil::kHalf[s][2], this->nz, this->pz,
+                 &e.shz);
+    e.base = ((wx * this->ny + wy) * this->nz + wz) * this->cc;
+    e.s = s;
+    return e;
+  }
+
+  __device__ Entry fetch(const Entry& m, int s) const {
+    Entry e;
+    e.base = __shfl_sync(0xffffffffu, m.base, s);
+    e.shx = __shfl_sync(0xffffffffu, m.shx, s);
+    e.shy = __shfl_sync(0xffffffffu, m.shy, s);
+    e.shz = __shfl_sync(0xffffffffu, m.shz, s);
+    e.s = __shfl_sync(0xffffffffu, m.s, s);
+    return e;
+  }
+
+  // the record with the twin's id: offset by idcap beyond the own cell
+  __device__ bool pack(const Entry& e, int k, int lane, const T* raw,
+                       Cand<T>* c) const {
+    const bool live = Base::pack(e, k, lane, raw, c);
+    if (e.s > 0) c->w = c->w >= T(0) ? c->w + idcap : T(-1);
+    return live;
+  }
+
+  __device__ int row(const Entry& e, int k, int lane) const {
+    return e.base + k * cell_walk::kTile + lane;
+  }
+
+  __device__ bool other(const Cand<T>& o, const Cand<T>& c) const {
+    return o.w < c.w;
+  }
 };
 
 // The body of a sorted-layout kernel: this warp's cell, its row passes

@@ -22,6 +22,14 @@ entry points (`prof.plane_half`). `lj_plane_half_force` and
 `lj_plane_half_fwd` are the entry points: CPU tensors go to the plain
 twins, CUDA tensors to `csrc/lj_plane_half.cu` (built with nvcc at first
 use, ops/cuda_build) or raise.
+
+The kernels walk the half stencil on the shared candidate walk
+(csrc/cell_walk.cuh over sorted_grid.cuh's HalfGrid) and skip pad rows by
+their position sentinel, which gives the twins' result only while no pad
+lies within the cutoff of another row: on a tensor off the CPU the
+wrappers raise on a cutoff of PAD_STEP or more
+(`pair_kernels.check_pad_cutoff`); the kernels check the box's part of
+the argument themselves.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import functools
 import torch
 
 from . import cuda_build
-from .pair_kernels import check_grid, check_launch, stencil
+from .pair_kernels import (bind_walk_library, check_grid, check_launch,
+                           check_pad_cutoff, stencil, walk_launch)
 
 SOURCE = cuda_build.CSRC / "lj_plane_half.cu"
 
@@ -173,32 +182,46 @@ def lj_plane_half_fwd_reference(key, ncells, idcap, gx, gy, gz, gi, prd):
 def _library() -> ctypes.CDLL:
     """Build (once per source and flag set) and load the kernel library."""
     lib = cuda_build.load(SOURCE)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("lj_plane_half_f32", "lj_plane_half_f64",
-                 "lj_plane_half_fwd_f32", "lj_plane_half_fwd_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 9 + [i32] * 4 + [f64] * 4 + [ptr]
-        fn.restype = i32
+    for stem in ("lj_plane_half", "lj_plane_half_fwd"):
+        bind_walk_library(lib, stem, 6, 4, 4)
     return lib
 
 
+def launch_shape(ncells, dtype, react: bool = True) -> dict:
+    """The launch K8 (`react`) or P10 makes on the grid `ncells` in
+    `dtype` (builds the library)."""
+    nx, ny, nz = ncells
+    stem = "lj_plane_half" if react else "lj_plane_half_fwd"
+    return walk_launch(_library(), stem, nx * ny * nz, dtype)
+
+
+def output(rows: int, dtype, device, react: bool) -> tuple:
+    """The kernels' output for `rows` rows: (buffer, its (fx, fy, fz)
+    views of [rows] each). K8 adds every sum into zeros, in f32 an
+    interleaved [rows, 4] buffer (x, y, z, unused: one four-wide reduction
+    per sum), in f64 three planes [3, rows]; P10 writes [3, rows]."""
+    if react and dtype == torch.float32:
+        buf = torch.zeros((rows, 4), dtype=dtype, device=device)
+        return buf, buf.t()[:3].unbind(0)
+    buf = (torch.zeros if react else torch.empty)((3, rows), dtype=dtype,
+                                                  device=device)
+    return buf, buf.unbind(0)
+
+
 def _launch(name, key, ncells, idcap, fl, prd, react: bool):
+    _, lj1, lj2, cutsq = key
+    check_pad_cutoff(cutsq)
     check_launch(fl, prd)
     ncell, cc = fl[0].shape
-    _, lj1, lj2, cutsq = key
     dt, dev = fl[0].dtype, fl[0].device
-    out = torch.empty((3, ncell, cc), dtype=dt, device=dev)
-    # the reaction buffer: 13 blocks of [3, cc] per cell, each written once
-    rbuf = (torch.empty((ncell, len(HALF) - 1, 3, cc), dtype=dt, device=dev)
-            if react else out)
+    buf, out = output(ncell * cc, dt, dev, react)
     fn = getattr(_library(),
                  f"{name}_{'f32' if dt == torch.float32 else 'f64'}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(a.data_ptr() for a in fl), prd.data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 rbuf.data_ptr(), *ncells, cc, float(idcap), lj1, lj2,
-                 cutsq, stream)
+                 buf.data_ptr(), *ncells, cc, float(idcap), lj1, lj2, cutsq,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
@@ -212,8 +235,10 @@ def lj_plane_half_force(key, ncells, idcap, gx, gy, gz, gi, prd):
     13 neighbour blocks (the state capacity, as the JAX callers pass it);
     gx, gy, gz: [nx, ny, nz, cc] positions; gi: [nx, ny, nz, cc] float ids
     (-1 for padding); prd: [3] box lengths. Returns (fx, fy, fz), each
-    [nx, ny, nz, cc]. Every launch of the CUDA kernels (the pair kernel and
-    its reaction fold, one call) adds one to `lj_plane_half_force.launches`.
+    [nx, ny, nz, cc] (on the card in f32: views of one interleaved
+    buffer, `output`). Every launch of the CUDA kernel adds one to
+    `lj_plane_half_force.launches`; on a tensor off the CPU a cutoff of
+    PAD_STEP or more raises (the kernel's pad skip).
     """
     if key[0] != "lj":
         raise NotImplementedError(f"no plane kernel for style {key[0]!r}")

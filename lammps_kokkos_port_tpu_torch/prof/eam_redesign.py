@@ -7,8 +7,9 @@ the fp glue), and its force sweep (`eam_cell_force`, K5's port). `--parent
 DIR` names a directory holding an earlier tree's `eam_cell.cu` and the
 headers it includes; it is built beside this tree's (ops/cuda_build, one
 nvcc each, all started together) and launched through its own C entry
-points. An earlier rho sweep without the epilogue is timed together with
-`embedding_fp`, the glue it needed, so both sides do the same work. A third
+points (this tree's, where its rho sweep has the epilogue). An earlier
+rho sweep without the epilogue is timed together with `embedding_fp`, the
+glue it needed, so both sides do the same work. A third
 build of this tree's source with both bodies' pairs per iteration of pass
 2 flipped (two and one: registers against independent chains) is timed
 beside both sweeps as "other_pairs".
@@ -77,10 +78,18 @@ def _c_array(values):
     return (ctypes.c_double * len(values))(*values)
 
 
-def sweep_calls(sim, dtype, parent, other) -> dict:
+def fused_parent(source: Path) -> bool:
+    """Whether an earlier tree's rho sweep has this tree's entry points
+    (the fp epilogue: an `fp` output after `rho`)."""
+    return "void* rho, void* fp," in source.read_text()
+
+
+def sweep_calls(sim, dtype, parent, other, fused: bool) -> dict:
     """The plain twins and the contenders of both sweeps on `sim`'s
     jittered grid: {"rho": (twin, {name: call}), "force": (...)}; every
-    rho call returns (rho, fp), every force call [3, ncells, cc]."""
+    rho call returns (rho, fp), every force call [3, ncells, cc]. With
+    `fused` the parent's rho sweep has this tree's entry points, else it
+    is timed with `embedding_fp`."""
     p = sim.nl.params
     ncell, cc = p.total_cells, p.cell_cap
     g = jittered(sim, dtype, JITTER).t().contiguous().reshape(3, ncell, cc)
@@ -122,21 +131,24 @@ def sweep_calls(sim, dtype, parent, other) -> dict:
             return f_out
         return run
 
-    def other_rho():
-        fn = getattr(other, f"eam_cell_rho_{sfx}")
-        rho, fp = torch.empty_like(g[0]), torch.empty_like(g[0])
-        if fn(g[0].data_ptr(), g[1].data_ptr(), g[2].data_ptr(),
-              prd.data_ptr(), valid.data_ptr(), rho.data_ptr(),
-              fp.data_ptr(), *p.ncells, cc, g_arr, *rtab[1:],
-              _c_array(fptab[0]), *fptab[1:], stream) != 0:
-            raise RuntimeError("other_pairs eam_cell_rho launch failed")
-        return rho, fp
+    def rho_of(lib, label):
+        fn = getattr(lib, f"eam_cell_rho_{sfx}")
+
+        def run():
+            rho, fp = torch.empty_like(g[0]), torch.empty_like(g[0])
+            if fn(g[0].data_ptr(), g[1].data_ptr(), g[2].data_ptr(),
+                  prd.data_ptr(), valid.data_ptr(), rho.data_ptr(),
+                  fp.data_ptr(), *p.ncells, cc, g_arr, *rtab[1:],
+                  _c_array(fptab[0]), *fptab[1:], stream) != 0:
+                raise RuntimeError(f"{label} eam_cell_rho launch failed")
+            return rho, fp
+        return run
 
     return {
         "rho": ((rho_ref, fp_ref),
-                {"parent": parent_rho,
+                {"parent": rho_of(parent, "parent") if fused else parent_rho,
                  "new": lambda: ek.eam_cell_rho_fp(*rho_args),
-                 "other_pairs": other_rho}),
+                 "other_pairs": rho_of(other, "other_pairs")}),
         "force": (ek.eam_cell_force_reference(*f_args),
                   {"parent": force_of(parent, "parent"),
                    "new": lambda: ek.eam_cell_force(*f_args),
@@ -162,7 +174,9 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
     with tempfile.TemporaryDirectory() as tmp:
         other_src = other_pairs_source(Path(tmp) / "other_pairs")
         cuda_build.build(ek.SOURCE, old_src, other_src)
-        old = parent_library(old_src, PARENT_ARGTYPES)
+        fused = fused_parent(old_src)
+        old = parent_library(old_src,
+                             ek.ARGTYPES if fused else PARENT_ARGTYPES)
         other = parent_library(other_src, ek.ARGTYPES)
         regs = {tree: registers(src) for tree, src in (
             ("parent", old_src), ("new", ek.SOURCE),
@@ -181,8 +195,8 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
             for dtype in (torch.float32, torch.float64):
                 tag = f"{size} {str(dtype).split('.')[-1]}"
                 entry = {"grid": list(p.ncells), "cc": p.cell_cap}
-                for sweep, (ref, calls) in sweep_calls(sim, dtype, old,
-                                                       other).items():
+                for sweep, (ref, calls) in sweep_calls(
+                        sim, dtype, old, other, fused).items():
                     errs = {k: _check(f"{tag} {sweep} {k}", fn(), ref,
                                       dtype) for k, fn in calls.items()}
                     ms = device_times(calls, rounds, inner)

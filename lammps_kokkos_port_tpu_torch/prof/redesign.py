@@ -14,9 +14,12 @@ from pathlib import Path
 import torch
 
 from ..ops import cuda_build
+from .timing import say
 
 SEED = 87287
-# a trace may miss the device events of a ctypes launch: try again
+# traces of one call before device_times gives up: a trace can miss device
+# records (all of them for a 2-microsecond ctypes launch, and some of the
+# first launches of a trace late in a long process, both seen on an H100)
 TRACE_ATTEMPTS = 5
 
 
@@ -74,27 +77,57 @@ def check(label: str, got, ref, dtype) -> float:
     return err.max().item()
 
 
+def trace(fn, inner: int) -> tuple:
+    """(summed device-op time in us, number of device ops) of `inner`
+    calls of fn in one torch.profiler trace, taken after a warm-up step of
+    `inner` calls with the profiler on (the step's own range, which the
+    trace also shows on the device, is not an op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    ops = []
+
+    def keep(prof):
+        ops.extend(e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(2):
+            for _ in range(inner):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(e.time_range.elapsed_us() for e in ops), len(ops)
+
+
 def device_times(calls: dict, rounds: int, inner: int) -> dict:
     """Device time per call (ms) of each of `calls`: the summed device-op
-    time of `inner` calls in one torch.profiler trace, the calls in turns,
-    the median of `rounds`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    times = {k: [] for k in calls}
+    time of `inner` calls in one trace (`trace`), the calls in turns, the
+    median of `rounds`. A trace counts when its device ops are a nonzero
+    multiple of `inner` and no fewer than any counted before for that call
+    (a trace that lost records holds fewer), and the median is over the
+    traces with the most; a call traced TRACE_ATTEMPTS times in a row
+    without such a trace raises."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    kept = {k: [] for k in calls}
     for _ in range(rounds):
         for k, fn in calls.items():
-            for _ in range(TRACE_ATTEMPTS):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(inner):
-                        fn()
-                    torch.cuda.synchronize()
-                us = sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA)
-                if us > 0:
+            for attempt in range(TRACE_ATTEMPTS):
+                us, n = trace(fn, inner)
+                if n and n % inner == 0 and n >= max(
+                        (m for m, _ in kept[k]), default=0):
+                    kept[k].append((n, us / inner / 1e3))
                     break
+                say(f"[device_ms] a trace of {k} holds {n} device ops for "
+                    f"{inner} calls (attempt {attempt + 1} of "
+                    f"{TRACE_ATTEMPTS})")
             else:
-                raise RuntimeError(f"no device time in the traces of {k}")
-            times[k].append(us / inner / 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+                raise RuntimeError(f"no complete trace of {k}")
+    return {k: statistics.median(ms for n, ms in v
+                                 if n == max(m for m, _ in v))
+            for k, v in kept.items()}

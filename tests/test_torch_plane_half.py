@@ -14,6 +14,7 @@ atol 1e-10*max|f|: the sums run in another order.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,8 @@ from jax.experimental.pallas import tpu as pltpu
 from lammps_kokkos_port_tpu.ops import pallas_pair as pp
 from lammps_kokkos_port_tpu.presets import lj_melt_sim as jax_lj_melt_sim
 from lammps_kokkos_port_tpu_torch.ops.half_kernels import (
+    HALF,
+    SOURCE,
     lj_plane_half_force,
     lj_plane_half_force_reference,
     lj_plane_half_fwd,
@@ -33,6 +36,7 @@ from lammps_kokkos_port_tpu_torch.ops.half_kernels import (
 )
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
 from lammps_kokkos_port_tpu_torch.ops.sortedforce import PAD_POS, PAD_STEP
+from lammps_kokkos_port_tpu_torch.prof import half_redesign
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -232,3 +236,75 @@ def test_grid_too_small_raises():
         lj_plane_half_force(key, (1, 3, 3), 36, g, g, g, g, prd)
     with pytest.raises(ValueError, match="plane channels"):
         lj_plane_half_fwd(key, (2, 3, 3), 36, g, g, g, g, prd)
+
+
+def test_kernel_half_table_matches_the_twins():
+    """The kernels' half stencil (kHalf in csrc/cell_stencil.cuh, read by
+    sorted_grid.cuh's HalfGrid) lists the twin's HALF in its order, which
+    is the JAX package's _HALF."""
+    text = (SOURCE.parent / "cell_stencil.cuh").read_text()
+    body = re.search(r"kHalf\[kHalfBlocks\]\[3\] = \{(.*?)\};", text,
+                     re.S).group(1)
+    table = [tuple(int(v) for v in row.split(","))
+             for row in re.findall(r"\{([^{}]*)\}", body)]
+    assert table == HALF == [tuple(o) for o in pp._HALF]
+    assert "cell_stencil::kHalf[s]" in (
+        SOURCE.parent / "sorted_grid.cuh").read_text()
+
+
+def test_kernel_pad_constants_match_layout():
+    """K8 and P10 tell pads by the sorted layout's sentinel: their source
+    includes sorted_grid.cuh, whose kPadPos and kPadStep equal
+    ops/sortedforce's."""
+    assert '#include "sorted_grid.cuh"' in SOURCE.read_text()
+    header = SOURCE.parent / "sorted_grid.cuh"
+    consts = dict(re.findall(r"constexpr double (kPad\w+) = ([0-9.e+]+);",
+                             header.read_text()))
+    assert float(consts["kPadPos"]) == PAD_POS
+    assert float(consts["kPadStep"]) == PAD_STEP
+
+
+@pytest.mark.parametrize("fn", [lj_plane_half_force, lj_plane_half_fwd])
+def test_pad_cutoff_raises_off_the_cpu_only(fn):
+    """The kernels skip pads on the grounds that no two pads share a cutoff:
+    on a tensor off the CPU (meta: no kernel for it) a cutoff of PAD_STEP
+    or more raises before any launch, a smaller one reaches the device
+    check. The twins skip nothing and take any cutoff: on the all-pad grid
+    they find no pair on either side of the bound."""
+    ncells, cc = (2, 2, 3), 4
+    shape = (*ncells, cc)
+    unsafe, safe = ("lj", 48.0, 24.0, PAD_STEP ** 2), (
+        "lj", 48.0, 24.0, 0.999 * PAD_STEP ** 2)
+    g = torch.zeros(shape, dtype=torch.float64, device="meta")
+    prd = torch.ones(3, dtype=torch.float64, device="meta")
+    launches = fn.launches
+    with pytest.raises(ValueError, match="pad spacing"):
+        fn(unsafe, ncells, 48, g, g, g, g, prd)
+    with pytest.raises(NotImplementedError, match="device"):
+        fn(safe, ncells, 48, g, g, g, g, prd)
+    assert fn.launches == launches
+    x = torch.from_numpy(np.asarray(PAD_POS + np.arange(48) * PAD_STEP,
+                                    dtype=np.float64).reshape(shape))
+    ids = torch.full(shape, -1.0, dtype=torch.float64)
+    for key in (unsafe, safe):
+        f = fn(key, ncells, 48, x, x, x, ids, torch.full((3,), 9.0,
+                                                          dtype=torch.float64))
+        assert all(torch.equal(a, torch.zeros_like(a)) for a in f)
+
+
+@pytest.mark.parametrize("name", sorted(half_redesign.VARIANTS))
+def test_redesign_variants_assemble(name, tmp_path):
+    """prof/half_redesign builds each other design of K8's reactions from a
+    copy of this tree's source: the structs it replaces and the walk lines
+    it hooks must each be found once, so an edit to either fails here and
+    not first on the card."""
+    edits, _ = half_redesign.VARIANTS[name]
+    out = half_redesign.variant_source(tmp_path, edits)
+    text = out.read_text()
+    original = SOURCE.read_text()
+    for struct, make in edits.items():
+        assert make(half_redesign._struct(original, struct)) in text
+    walk = (tmp_path / "cell_walk.cuh").read_text()
+    assert all(new in walk for _, new in half_redesign.WALK_HOOKS)
+    assert {p.name for p in tmp_path.glob("*.cuh")} == {
+        p.name for p in SOURCE.parent.glob("*.cuh")}

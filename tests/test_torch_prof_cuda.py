@@ -14,10 +14,14 @@ card with:
 
 (`--noconftest`: the suite's conftest configures jax, which this file does
 not use.) Inputs: the sorted state of the 864-atom melt, positions
-jittered by a seeded +-0.05. Tolerances: f64 rtol 1e-10, f32 rtol 1e-4,
+jittered by a seeded +-0.05, and for K8 and P10 planted grids (pairs at
+the cutoff across a wrapped face, interleaved pads, a 40-atom cell at cc
+64, pads meeting across the periodic corner, ids out of row order).
+Tolerances: f64 rtol 1e-10, f32 rtol 1e-4,
 each with atol rtol*max|f|: kernel and twin make the same cutoff decisions
 (r2 rounded alike) and sum in other orders; K8's reactions are summed by
-shared-memory atomics, in an order that changes from run to run. P9's
+shared-memory atomics and global reductions, in an order that changes
+from run to run. P9's
 approximate reciprocal (rcp.approx.ftz.f32, at most 1 ulp off) is held to
 the exact twin within the same f32 tolerance; so are P2's and P11's, which
 add one Newton step (in f64 seeded from the f32 approximation, about
@@ -38,6 +42,8 @@ import torch
 
 from lammps_kokkos_port_tpu_torch.ops import column_kernels, half_kernels
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
+from lammps_kokkos_port_tpu_torch.ops.sortedforce import (PAD_POS, PAD_STEP,
+                                                         _pad_x)
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
 from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
@@ -46,6 +52,8 @@ from lammps_kokkos_port_tpu_torch.prof import dynslice_kernels as dk
 from lammps_kokkos_port_tpu_torch.prof import v3_kernels
 from lammps_kokkos_port_tpu_torch.prof import zwin_kernels as zk
 from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
+from test_torch_pair_kernel_cuda import (KEY, _lattice_grid,
+                                         boundary_targets, planted_pairs)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +130,188 @@ def test_plane_half_equals_full_stencil(cuda, dtype):
     f1 = lj_cell_force(sp.key, sp.ncells, *sp.flat[:3], sp.prd)
     _assert_close([a.reshape(-1) for a in f8],
                   [a.reshape(-1) for a in f1], dtype)
+
+
+def _half_check(args, dtype, react=True):
+    """One counted launch of K8 (`react`) or P10 on `args` against its twin
+    (never called on the card's tensors); returns (kernel, twin) as [3, n]
+    force planes."""
+    fn = (half_kernels.lj_plane_half_force if react
+          else half_kernels.lj_plane_half_fwd)
+    before = fn.launches
+    got = torch.stack([a.reshape(-1) for a in fn(*args)])
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    plain = (half_kernels.lj_plane_half_force_reference if react
+             else half_kernels.lj_plane_half_fwd_reference)
+    ref = torch.stack([a.reshape(-1) for a in plain(*args)])
+    _assert_close(got, ref, dtype)
+    return got, ref
+
+
+def _plane_args(key, ncells, g, ids, prd, idcap=None):
+    """K8's arguments from [3, ncell, cc] positions and [ncell, cc] ids."""
+    shape = (*ncells, g.shape[-1])
+    return (key, ncells, ids.numel() if idcap is None else idcap,
+            *(a.reshape(shape) for a in g), ids.reshape(shape), prd)
+
+
+def _ids(valid):
+    """Float ids of the plane layout: the row where valid, else -1."""
+    rows = torch.arange(valid.numel(), device=valid.device).reshape(
+        valid.shape)
+    return torch.where(valid, rows, -1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plane_half_cutoff_boundary_across_a_wrapped_face(cuda, dtype):
+    """Pairs planted at r2 = cutsq and one ulp either side, each across the
+    periodic x face: the own row sits in the last x cell and its candidate,
+    in the first, is reached by the half stencil's wrapped (1, 0, 0) entry
+    shifted by +Lx (exactly: the planted x lies in [Lx, 2 Lx]). Only the
+    pair one ulp below the cutoff gives forces, in both instances and
+    their twins."""
+    side, ncells, cc = 3.0, (3, 8, 3), 32
+    lx = ncells[0] * side
+    g = _pad_x(72 * cc, torch.float64, "cpu").repeat(3, 1).reshape(
+        3, 72, cc)
+    valid = torch.zeros(72, cc, dtype=torch.bool)
+    for k, target in enumerate(boundary_targets(dtype)):
+        pos = planted_pairs(dtype, [target], own0=(lx + 0.8, 2.5 + 9 * k,
+                                                   1.5))
+        assert lx <= pos[0, 0] <= 2 * lx
+        pos[0, 0] -= lx  # exact: Sterbenz
+        for i, p in enumerate(pos):
+            c = (p // side).astype(int)
+            cell = (c[0] * ncells[1] + c[1]) * ncells[2] + c[2]
+            g[:, cell, 2 * k + i] = torch.from_numpy(p)
+            valid[cell, 2 * k + i] = True
+    prd = torch.tensor([lx, 24.0, 9.0], dtype=dtype, device=cuda)
+    args = _plane_args(KEY, ncells, g.to(dtype).to(cuda),
+                       _ids(valid).to(dtype).to(cuda), prd)
+    for react in (True, False):
+        got, ref = _half_check(args, dtype, react)
+        hit = ref.abs().sum(0) > 0
+        # the pair one ulp below: both rows with reactions, one without
+        assert int(hit.sum()) == (2 if react else 1)
+        assert torch.equal(got.abs().sum(0) > 0, hit)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cc,ncells", [(32, (3, 4, 5)), (64, (3, 3, 4))])
+def test_plane_half_interleaved_pads_and_row_passes(cuda, dtype, cc, ncells):
+    """Pads among live rows; at cc 64 one cell holds 40 atoms, so its rows
+    run in two row passes of one warp, and the own cell's reactions from
+    one pass land on rows of the other."""
+    ncell = ncells[0] * ncells[1] * ncells[2]
+    counts = [(c * 7) % (cc // 2) + 4 for c in range(ncell)]
+    if cc == 64:
+        counts[5] = 40
+    g, prd, valid = _lattice_grid(ncells, cc, counts, 11, dtype, cuda)
+    args = _plane_args(KEY, ncells, g, _ids(valid).to(dtype), prd)
+    for react in (True, False):
+        got, ref = _half_check(args, dtype, react)
+        assert ref[:, valid.reshape(-1)].abs().max().item() > 1.0
+        pads = ~valid.reshape(-1)
+        assert torch.equal(got[:, pads], torch.zeros_like(got[:, pads]))
+    if cc == 64:  # the 40-atom cell's rows of its second pass
+        second = valid[5].clone()
+        second[:32] = False
+        assert bool(second.any())
+        assert got.reshape(3, ncell, cc)[:, 5, second].abs().sum(0).min() > 0
+
+
+def _huge_box_planes(cuda):
+    """max(prd) >= PAD_POS / 4: pads cannot be told by position."""
+    g, _, valid = _lattice_grid((3, 3, 3), 32, [5] * 27, 3, torch.float64,
+                                cuda)
+    prd = torch.full((3,), PAD_POS / 4, dtype=torch.float64, device=cuda)
+    return g, valid, prd
+
+
+def _corner_planes(real_row0: bool):
+    """The pad sentinels of a (3, 3, 3) x cc 1 grid in a box of edge 26 *
+    PAD_STEP + 1, where rows 0 and 26 meet across the periodic corner (r2
+    = 3), which breaks the pad premise. All pads (id -1), or row 0 a real
+    atom (id 0) at its sentinel: then the half stencil reaches it from
+    row 26 (a pad, id -1) through the wrapped (1, 1, 1) entry, and the id
+    rule -1 < 0 + idcap gives the pair."""
+    g = _pad_x(27, torch.float64, "cpu").reshape(1, 27, 1).repeat(3, 1, 1)
+    valid = torch.zeros(27, 1, dtype=torch.bool)
+    valid[0, 0] = real_row0
+    prd = torch.full((3,), 26 * PAD_STEP + 1.0, dtype=torch.float64)
+    return g, valid, prd
+
+
+@pytest.mark.parametrize("inputs", ["huge_box", "corner_pads",
+                                    "corner_pad_and_atom"])
+def test_plane_half_walks_every_row_where_pads_could_meet(cuda, inputs):
+    """Where the box does not keep pads out of every cutoff (sorted_grid.cuh,
+    conditions (b) and (c)), both instances walk every row and every
+    candidate and the id rule decides, as in the twins: two pads (-1 < -1)
+    take no pair; a pad own row takes one with a real candidate inside the
+    cutoff."""
+    if inputs == "huge_box":
+        g, valid, prd = _huge_box_planes(cuda)
+    else:
+        g, valid, prd = (a.to(cuda) for a in _corner_planes(
+            inputs == "corner_pad_and_atom"))
+    args = _plane_args(KEY, (3, 3, 3), g, _ids(valid).to(torch.float64), prd)
+    for react in (True, False):
+        got, ref = _half_check(args, torch.float64, react)
+        if inputs == "corner_pads":
+            assert torch.equal(ref, torch.zeros_like(ref))
+            assert torch.equal(got, torch.zeros_like(got))
+        elif inputs == "corner_pad_and_atom":
+            assert ref[:, 26].abs().max() > 0  # the pad own row's pair
+            assert (ref[:, 0].abs().max() > 0) == react
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("idcap", ["cap", 0])
+def test_plane_half_ids_not_in_row_order(cuda, dtype, idcap):
+    """Ids permuted among the real rows, so the pair rule own_id < cand_id
+    and not the row order decides which row of a pair evaluates it; with
+    idcap 0 it decides across cells too (a pair whose own id is the larger
+    is not taken at all, by the twin or by the kernels)."""
+    sp = _planes(cuda, dtype)
+    ids = sp.ids.clone()
+    real = ids >= 0
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ids[real] = ids[real][torch.randperm(int(real.sum()), generator=gen,
+                                         device=cuda)]
+    shape = sp.plane[0].shape
+    args = (sp.key, sp.ncells, sp.cap if idcap == "cap" else idcap,
+            *sp.plane[:3], ids.reshape(shape), sp.prd)
+    for react in (True, False):
+        _half_check(args, dtype, react)
+
+
+def test_plane_half_pad_cutoff_raises(cuda):
+    """A cutoff of PAD_STEP or more could pair two pads: both wrappers
+    raise before any launch."""
+    g = torch.zeros(2, 2, 3, 8, dtype=torch.float64, device=cuda)
+    prd = torch.ones(3, dtype=torch.float64, device=cuda)
+    for fn in (half_kernels.lj_plane_half_force,
+               half_kernels.lj_plane_half_fwd):
+        before = fn.launches
+        with pytest.raises(ValueError, match="pad spacing"):
+            fn(("lj", 48.0, 24.0, 256.0), (2, 2, 3), 96, g, g, g, g, prd)
+        assert fn.launches == before
+
+
+def test_plane_half_launch_shape(cuda):
+    """The launch the library reports: one warp per cell, four cells a
+    block, within the default 48 KB of shared memory; K8's reaction
+    accumulators on top of P10's."""
+    for dtype in DTYPES:
+        k8 = half_kernels.launch_shape((37, 37, 37), dtype)
+        p10 = half_kernels.launch_shape((37, 37, 37), dtype, react=False)
+        for s in (k8, p10):
+            assert s["threads"] == (32, 4)
+            assert s["blocks"] == -(-37 ** 3 // 4)
+            assert 0 < s["smem_bytes"] <= 48 * 1024
+        assert k8["smem_bytes"] > p10["smem_bytes"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
