@@ -1,7 +1,7 @@
 // The candidate walk of the port's sorted and dense cell kernels (sm_90a):
-// lj_cell_force.cu and eam_cell.cu (the sorted layout, sorted_grid.cuh) and
-// lj_cell_dense.cu (list mode "cell"). The other cell kernels keep
-// cell_stencil.cuh's `sweep`.
+// lj_cell_force.cu, eam_cell.cu, lj_plane_half.cu and lj_column_half.cu
+// (the sorted layout, sorted_grid.cuh) and lj_cell_dense.cu (list mode
+// "cell"). The other cell kernels keep cell_stencil.cuh's `sweep`.
 //
 // Unit of work: one warp owns up to 32 rows of one cell (a row pass) and
 // walks that cell's stencil entries on its own (G::kEntries neighbour
@@ -34,9 +34,10 @@
 //
 // Reactions (Newton-half passes): with a reaction policy `R` whose kOn is
 // true, the pack step keeps each kept candidate's row beside its record
-// (the geometry's kRows) and pass 2 hands every pair to R::pair, which
-// lands the reaction on the candidate's row (lj_plane_half.cu).
-// NoReactions compiles that out.
+// (the geometry's kRows; in lj_column_half.cu, a landing index computed
+// from the candidate's stencil entry) and pass 2 hands every pair to
+// R::pair, which lands the reaction there (lj_plane_half.cu,
+// lj_column_half.cu). NoReactions compiles that out.
 //
 // The pair body `B` is a template parameter (LjBody below; eam_cell.cu's
 // two bodies):
@@ -49,6 +50,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "cell_stencil.cuh"
 
@@ -267,7 +270,10 @@ __device__ __forceinline__ void copy_wait_all() {
 //   bool other(const Cand<T>& own, const Cand<T>& c);  not the self pair
 //       (or, in a Newton-half pass, the pair rule)
 //   int row(e, k, lane);             candidate `lane` of tile k's row (read
-//                                    only where R is on)
+//                                    only where R is on), or whatever index
+//                                    R lands its reaction at
+//   static constexpr bool kFullMasks;        optional (FullMasks below):
+//                                    every kept candidate is a pair
 // `self_tile`: the tile whose candidate at this lane is the row itself
 // (masked by its packed position), or -1 where `other` tells the self
 // pair. Every lane of the warp calls it; lanes whose row is not `live`
@@ -281,6 +287,15 @@ __device__ __forceinline__ void copy_wait_all() {
 struct NoReactions {
   static constexpr bool kOn = false;
 };
+
+// G::kFullMasks, where a geometry has it (lj_column_half.cu's unstaged
+// instance): pass 1 takes every kept candidate of a tile, forming no r2;
+// false for a geometry without the member
+template <typename G, typename = void>
+struct FullMasks : std::false_type {};
+template <typename G>
+struct FullMasks<G, std::void_t<decltype(G::kFullMasks)>>
+    : std::bool_constant<G::kFullMasks> {};
 
 template <typename T, typename G>
 __device__ __forceinline__ void issue_batch(const G& geo,
@@ -323,12 +338,16 @@ __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
       const int base = g * kTile;
       const int n = bounds[g];
       unsigned m = 0;
+      if constexpr (FullMasks<G>::value) {
+        m = n == kTile ? ~0u : (1u << n) - 1u;
+      } else {
 #pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const Cand<T> c = sm.get(base + j);
-        T dx, dy, dz;
-        const T r2 = geo.dist(own, c, dx, dy, dz);
-        if (r2 < cutsq && geo.other(own, c)) m |= 1u << j;
+        for (int j = 0; j < n; ++j) {
+          const Cand<T> c = sm.get(base + j);
+          T dx, dy, dz;
+          const T r2 = geo.dist(own, c, dx, dy, dz);
+          if (r2 < cutsq && geo.other(own, c)) m |= 1u << j;
+        }
       }
       if (t0 + g == self_tile) m &= ~self_bit;
       masks[base + lane] = m;

@@ -1,6 +1,8 @@
 // The sorted cell-major layout as the cell_walk.cuh kernels read it
 // (sm_90a): lj_cell_force.cu (K1-K3's port), eam_cell.cu (K4/K5's) and,
-// over the half stencil (HalfGrid), lj_plane_half.cu (K8/P10's).
+// over the half stencil (HalfGrid), lj_plane_half.cu (K8/P10's) and
+// lj_column_half.cu (P2, P3, P5, P8 and P11, whose ColumnGrid is a sibling
+// of HalfGrid).
 //
 // Layout: per-row planes x, y, z (and for some kernels a fourth per-row
 // value w) are [ncells, cc] rows, cell id (cx*ny + cy)*nz + cz.

@@ -6,17 +6,17 @@ over the half stencil (ops/half_kernels.HALF) of the column layout
 `[nx*ny, nz, cc]`:
 
   P5  prof_kernel_iso.py:99 (`make_kernel(mode)` :11-92), one pass a mode:
-      `iso_full`: K8's forces, every reaction written to its neighbour
-      cell; `iso_batched`: the same forces, the reactions grouped by (dx,
-      dy) target before they leave the block; `iso_redonly`: forward sums
-      plus the own block's reactions; `iso_noreverse`: forward sums only;
-      `iso_noassembly`: the candidates are never staged, every output is
-      NaN (the last three are timing ablations, not forces);
+      `iso_full`: K8's forces, every reaction landed on its candidate's
+      row; `iso_batched`: the same forces, the reactions grouped by (dx,
+      dy) target and z, then gathered by a fold; `iso_redonly`: forward
+      sums plus the own block's reactions; `iso_noreverse`: forward sums
+      only; `iso_noassembly`: the candidates are never staged, every
+      output is NaN (the last three are timing ablations, not forces);
   P8  prof_kernel_writeonce.py:120 (`_wo_kernel` :31-107): `writeonce`,
-      the forward sums and rc `[nx*ny, 3, nz, 5*cc]`, the reactions written
-      once per column, grouped by target (half_kernels.TARGETS), the own
-      block's among them; `fold_targets` is the script's periodic roll
-      fold outside the kernel (:130-138), `wo_half_force` both: K1's forces;
+      the forward sums and rc `[nx*ny, 3, nz, 5*cc]`, the reactions grouped
+      by target (half_kernels.TARGETS), the own block's among them;
+      `fold_targets` is the script's periodic roll fold outside the kernel
+      (:130-138), `wo_half_force` both: K1's forces;
   P2  prof_halfv2.py:151 (`make_v2` :44-161): `halfv2` and
       `halfv2_approx`, K1's id-free forces (slot order in the self block,
       0 < r2) with the exact or the approximate reciprocal;
@@ -25,23 +25,34 @@ over the half stencil (ops/half_kernels.HALF) of the column layout
       and `zchunk_fused`, forward only, id-free, 0 < r2 < cutsq (both
       orders in the self block), approximate reciprocal;
   P3  prof_kernel_cc32.py:182 (`t2_call` :181-189, `t2_kernel` :90-177):
-      `cc32_half`, `iso_full`'s forces and reaction scheme with the mask
+      `cc32_half`, `iso_full`'s forces and reactions with the mask
       own_id < cand_id and own_id >= 0 (:153-156), so a padding row takes no
       pair wherever it sits. The script stages its 14 blocks as 128-lane
       tiles of four blocks and fills the last tile's 64 lanes with -1.0 in
       every channel (:136-142): TPU lane alignment, lanes that never pass
       the mask, which have no counterpart here.
 
+The kernels (csrc/lj_column_half.cu, whose note gives the design) are
+instances of the shared candidate walk (csrc/cell_walk.cuh): one warp per
+cell, only live candidates near the warp's rows staged, each reaction
+landed by a global reduction, on the candidate's row (`iso_full`,
+`cc32_half`, `iso_redonly`, `iso_noassembly`: into zeros, in f32 an
+interleaved buffer as K8's, half_kernels.output) or in target blocks
+(`iso_batched`, `halfv2*`: gathered by a fold launch; `writeonce`: rc).
+They are bound by issue slots and latency, not bytes.
+
 Every wrapper takes `(key, ncells, idcap, gx, gy, gz, gi, prd, zb=None)`:
 the channels of prof/grid.SortedPlanes.col, float ids `gi` (-1 for
 padding) offset by `idcap` in the 13 neighbour blocks; the id-free passes
-read neither `gi` nor `idcap` (K1's interface). `zb` is the number of z
-cells of one column that a CUDA block walks at a time, one warp row each
-(default: the whole column, up to 1024 threads): it sets the occupancy
-and never the result, and the twins ignore it. CPU tensors go to the
-twins (`reference`), CUDA tensors to csrc/lj_column_half.cu (built with
-nvcc at first use, ops/cuda_build) or raise. Each wrapper counts its CUDA
-calls in `.launches` (a pass and its reaction fold are one call).
+read neither `gi` nor `idcap` (K1's interface). `zb`, the scripts' z chunk,
+is here the number of cells (warps, consecutive z of a column) of one CUDA
+block: it sets the occupancy and never the result, and the twins ignore
+it. Each pass is compiled for the chunks its entry points ask for (`ZB`;
+the default, None, is four cells a block) and any other `zb` raises,
+also on the CPU. CPU tensors go to the twins (`reference`), CUDA tensors
+to the kernels (built with nvcc at first use, ops/cuda_build) or raise.
+Each wrapper counts its CUDA calls in `.launches` (the output's zeroing,
+the pass and its fold are one call).
 """
 
 from __future__ import annotations
@@ -49,17 +60,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
+import shutil
+import subprocess
 
 import torch
 
 from ..ops import cuda_build
 from ..ops.column_kernels import column_channels
-from ..ops.half_kernels import (HALF, TARGETS, check_id_limit, half_walk,
+from ..ops.half_kernels import (TARGETS, check_id_limit, half_walk, output,
                                 plane_half_fits)
-from ..ops.pair_kernels import check_launch
+from ..ops.pair_kernels import check_launch, check_pad_cutoff
 
 SOURCE = cuda_build.CSRC / "lj_column_half.cu"
-MAX_THREADS = 1024  # a block's threads: cc rounded up to a warp, times zb
+# cells a block where the caller names no z chunk (cell_walk.cuh)
+DEFAULT_ZB = 4
 
 # name: (pass number of csrc/lj_column_half.cu, the plain walk's options)
 SPECS = {
@@ -68,35 +83,55 @@ SPECS = {
     "iso_redonly": (2, dict(mask="ids", react="own")),
     "iso_noreverse": (3, dict(mask="ids", react="none")),
     "iso_noassembly": (4, dict(mask="ids", react="cell")),
-    "writeonce": (1, dict(mask="ids", react="target")),
+    "writeonce": (9, dict(mask="ids", react="target")),
     "halfv2": (5, dict(mask="slot", react="target")),
     "halfv2_approx": (6, dict(mask="slot", recip="approx", react="target")),
     "zchunk_fwd": (3, dict(mask="ids", react="none")),
     "zchunk_fused": (7, dict(mask="dist", recip="approx", react="none")),
     "cc32_half": (8, dict(mask="ids_live", react="cell")),
 }
+# the z chunks each pass is compiled for: those its entry points ask for
+# (prof.halfv2: 2 and 4; prof.zchunk: nz, 4, 2 and 1, nz being 12 at the
+# scripts' 20-cell melt and 3 at the 6-cell one the tests run); the
+# others take the default only
+_CHUNKS = (1, 2, 3, 4, 12)
+ZB = {name: (DEFAULT_ZB,) for name in SPECS}
+ZB.update({"halfv2": (2, 4), "halfv2_approx": (2, 4),
+           "zchunk_fwd": _CHUNKS, "zchunk_fused": _CHUNKS})
+
+
+def cells_per_block(name: str, zb=None) -> int:
+    """The cells of one CUDA block for pass `name` at z chunk `zb` (None:
+    the default); raises for a chunk the pass is not compiled for."""
+    if zb is None:
+        return DEFAULT_ZB
+    if zb not in ZB[name]:
+        raise ValueError(f"{name}: zb {zb} is not compiled; its z chunks are"
+                         f" {ZB[name]} (or None, {DEFAULT_ZB} cells a "
+                         "block)")
+    return zb
+
+
+def bound_planes(name: str) -> int:
+    """The [nx*ny*nz, cc] planes pass `name` must move at the least: its
+    inputs read once (x, y, z, and the ids where its mask reads them) and
+    its outputs written once (three force planes; `writeonce`'s rc, 15
+    more). No scratch of the implementation counts."""
+    mask = SPECS[name][1]["mask"]
+    inputs = 4 if mask.startswith("ids") else 3
+    return inputs + 3 + (3 * len(TARGETS) if name == "writeonce" else 0)
 
 
 def _channels(name, ncells, idcap, gx, gy, gz, gi, prd, zb):
-    """Validate the inputs; return the [nx*ny*nz, cc] channels and the warp
-    rows of a block."""
+    """Validate the inputs; return the [nx*ny*nz, cc] channels and the
+    cells of a block."""
     if not plane_half_fits(ncells):
         raise ValueError(f"column-half grid {tuple(ncells)} needs nx, ny >= "
                          "2 and nz >= 3")
     fl = column_channels(ncells, gx, gy, gz, gi, prd)
     if SPECS[name][1]["mask"].startswith("ids"):
         check_id_limit(gi, idcap)
-    nz, cc = ncells[2], gx.shape[-1]
-    lanes = -(-cc // 32) * 32
-    if zb is None:
-        rows = min(nz, MAX_THREADS // lanes)
-    elif zb >= 1:
-        rows = min(zb, nz)
-    else:
-        raise ValueError(f"zb must be >= 1, got {zb}")
-    if lanes * rows > MAX_THREADS:
-        raise ValueError(f"zb {rows} x {lanes} lanes > {MAX_THREADS} threads")
-    return fl, rows
+    return fl, cells_per_block(name, zb)
 
 
 def fold_targets(ncells, f, rc):
@@ -135,47 +170,63 @@ def reference(name, key, ncells, idcap, gx, gy, gz, gi, prd, zb=None):
     return _plain(name, key, ncells, idcap, fl, prd, gx.shape)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (once per source and flag set) and load the kernel library."""
-    lib = cuda_build.load(SOURCE)
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for name in ("lj_column_half_f32", "lj_column_half_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i32] * 3 + [ptr] * 9 + [i32] * 4 + [f64] * 4 + [ptr]
-        fn.restype = i32
+ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the ctypes signatures of a build of lj_column_half.cu."""
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"lj_column_half_{suffix}")
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(name, key, ncells, idcap, fl, prd, rows, shape):
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (once per source and flag set) and load the kernel library."""
+    return bind(cuda_build.load(SOURCE))
+
+
+def launch(name, key, ncells, idcap, fl, prd, zb=None, lib=None):
+    """One call of pass `name` on the [nx*ny*nz, cc] channels `fl` through
+    `lib` (default: this tree's library; a build of lj_column_half.cu bound
+    with `bind` otherwise): the outputs' zeroing, the pass and its fold.
+    Returns three [nx*ny*nz, cc] force views, and rc for `writeonce`.
+    Counts nothing."""
+    _, lj1, lj2, cutsq = key
+    check_pad_cutoff(cutsq)
     check_launch(fl, prd)
     number, walk = SPECS[name]
+    w = cells_per_block(name, zb)
     nx, ny, nz = ncells
     ncell, cc = fl[0].shape
-    _, lj1, lj2, cutsq = key
+    rows = ncell * cc
     dt, dev = fl[0].dtype, fl[0].device
-    out = torch.empty((3, ncell, cc), dtype=dt, device=dev)
-    if walk["react"] == "cell":  # 13 blocks of [3, cc] per cell
-        rbuf = torch.empty((ncell, len(HALF) - 1, 3, cc), dtype=dt,
-                           device=dev)
-    elif walk["react"] == "target":  # rc
-        rbuf = torch.empty((nx * ny, 3, nz, len(TARGETS) * cc), dtype=dt,
-                           device=dev)
+    rc = None
+    if walk["react"] in ("cell", "own"):  # adds into zeros (K8's layout)
+        buf, f = output(rows, dt, dev, react=True)
     else:
-        rbuf = out  # not read
-    fn = getattr(_library(), "lj_column_half_"
+        buf = torch.empty((3, rows), dtype=dt, device=dev)
+        f = buf.unbind(0)
+    if name == "writeonce":  # the script's rc
+        rc = torch.zeros((nx * ny, 3, nz, len(TARGETS) * cc), dtype=dt,
+                         device=dev)
+    elif walk["react"] == "target":  # 5 blocks a cell, 4 values a row
+        rc = torch.zeros((4 if dt == torch.float32 else 3) * len(TARGETS)
+                         * rows, dtype=dt, device=dev)
+    lib = _library() if lib is None else lib
+    fn = getattr(lib, "lj_column_half_"
                  + ("f32" if dt == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(number, rows, int(name != "writeonce"),
-                 *(a.data_ptr() for a in fl), prd.data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 rbuf.data_ptr(), nx, ny, nz, cc, float(idcap), lj1, lj2,
-                 cutsq, stream)
+        err = fn(number, w, *(a.data_ptr() for a in fl), prd.data_ptr(),
+                 buf.data_ptr(), 0 if rc is None else rc.data_ptr(), nx, ny,
+                 nz, cc, float(idcap), lj1, lj2, cutsq, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    f = tuple(a.reshape(shape) for a in out)
-    return (*f, rbuf) if name == "writeonce" else f
+    return (*f, rc) if name == "writeonce" else tuple(f)
 
 
 def _wrapper(name, doc):
@@ -183,12 +234,13 @@ def _wrapper(name, doc):
         if key[0] != "lj":
             raise NotImplementedError(f"no column kernel for style "
                                       f"{key[0]!r}")
-        fl, rows = _channels(name, ncells, idcap, gx, gy, gz, gi, prd, zb)
+        fl, _ = _channels(name, ncells, idcap, gx, gy, gz, gi, prd, zb)
         if gx.device.type == "cpu":
             return _plain(name, key, ncells, idcap, fl, prd, gx.shape)
-        out = _launch(name, key, ncells, idcap, fl, prd, rows, gx.shape)
+        out = launch(name, key, ncells, idcap, fl, prd, zb)
         run.launches += 1
-        return out
+        f = tuple(a.reshape(gx.shape) for a in out[:3])
+        return (*f, out[3]) if name == "writeonce" else f
 
     run.__name__ = run.__qualname__ = name
     run.__doc__ = doc
@@ -197,22 +249,22 @@ def _wrapper(name, doc):
 
 
 iso_full = _wrapper("iso_full", """P5 `full`: lj/cut forces, Newton-half,
-    each block's reactions written once per cell and gathered by a fold
-    kernel (K8's scheme). Returns (fx, fy, fz), each [nx*ny, nz, cc].""")
+    each reaction landed on its candidate's row (K8's function and
+    scheme). Returns (fx, fy, fz), each [nx*ny, nz, cc] (on the card in
+    f32: views of one interleaved buffer).""")
 iso_batched = _wrapper("iso_batched", """P5 `batched`: `iso_full`'s forces,
-    the reactions summed in the block by (dx, dy) target and z, written
-    once per column as rc and gathered over the 5 source columns by a fold
-    kernel. Returns (fx, fy, fz).""")
+    the reactions landed by (dx, dy) target and z in the column's target
+    blocks and gathered over the 5 source columns by a fold launch.
+    Returns (fx, fy, fz).""")
 iso_redonly = _wrapper("iso_redonly", """P5 `redonly`: the forward sums and
-    the own block's reactions; the shared reaction sums of the 13 other
-    blocks run and are dropped (wrong forces, a timing ablation). Returns
-    (fx, fy, fz).""")
+    the own block's reactions; the 13 other blocks' are not landed (wrong
+    forces, a timing ablation). Returns (fx, fy, fz).""")
 iso_noreverse = _wrapper("iso_noreverse", """P5 `noreverse`: the forward
     half sums only, P10's function (a timing ablation). Returns (fx, fy,
     fz).""")
 iso_noassembly = _wrapper("iso_noassembly", """P5 `noassembly`:
-    `iso_full` with the candidate blocks never read from memory; the stage
-    is filled with NaN and walked, so every output is NaN (a timing
+    `iso_full` with the candidate blocks never read from memory; every slot
+    is walked as a NaN candidate, so every output is NaN (a timing
     ablation). Returns (fx, fy, fz).""")
 writeonce = _wrapper("writeonce", """P8: the forward half sums (without
     the own block's reactions) and rc [nx*ny, 3, nz, 5*cc], rc[col, c, z,
@@ -220,7 +272,7 @@ writeonce = _wrapper("writeonce", """P8: the forward half sums (without
     Returns (fx, fy, fz, rc); `fold_targets` folds them into forces.""")
 halfv2 = _wrapper("halfv2", """P2: K1's forces, id-free (the self block's
     slot order and 0 < r2 < cutsq, r2 clamped at 0.25), exact reciprocal;
-    reactions grouped by target in the block as `iso_batched`'s. Returns
+    reactions in target blocks and a fold, as `iso_batched`'s. Returns
     (fx, fy, fz).""")
 halfv2_approx = _wrapper("halfv2_approx", """P2 with the approximate
     reciprocal: rcp.approx.ftz.f32 (f64: seeded from it) and one Newton
@@ -244,3 +296,50 @@ def wo_half_force(key, ncells, idcap, gx, gy, gz, gi, prd):
     `fold_targets`. Returns K1's forces (fx, fy, fz)."""
     *f, rc = writeonce(key, ncells, idcap, gx, gy, gz, gi, prd)
     return fold_targets(ncells, f, rc)
+
+
+# the kernel instances of a build log: (type, mask, reciprocal, landing)
+# of csrc/lj_column_half.cu and the passes each serves
+_MASKS = ("ids", "ids_live", "slot", "dist", "unstaged")
+_LANDS = ("none", "row", "own_row", "target", "script_target")
+_INSTANCE = re.compile(r"column_half_kernel<(float|double), .*?Mask\)(\d+), "
+                       r"(?:\(bool\))?(\w+), .*?Land\)(\d+), "
+                       r"(?:\(int\))?(\d+)>")
+
+
+def instance_registers(log: str) -> list:
+    """ptxas's registers of each kernel in a build log of
+    lj_column_half.cu, [(name, registers)] in the compiler's order, each
+    kernel named by its template arguments (demangled with cu++filt where
+    the toolkit has it; the mangled name otherwise)."""
+    pairs, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            pairs.append((name, int(m.group(1))))
+            name = None
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        names = subprocess.run([tool], input="\n".join(n for n, _ in pairs),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [n for n, _ in pairs]
+    if len(names) != len(pairs):
+        names = [n for n, _ in pairs]
+    out = []
+    for plain, (mangled, regs) in zip(names, pairs):
+        m = _INSTANCE.search(plain)
+        if m:
+            t, mask, approx, land, w = m.groups()
+            recip = " approx" if approx in ("true", "1") else ""
+            plain = (f"{'f32' if t == 'float' else 'f64'} "
+                     f"{_MASKS[int(mask)]}{recip} {_LANDS[int(land)]} "
+                     f"zb={w}")
+        elif "target_fold" in plain:
+            plain = f"target_fold {'f32' if 'float' in plain else 'f64'}"
+        out.append((plain, regs))
+    return out

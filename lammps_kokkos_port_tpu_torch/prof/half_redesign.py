@@ -7,8 +7,9 @@ The kernels are `csrc/lj_plane_half.cu`'s two instances: K8 (reactions,
 `lj_plane_half_fwd`). `--parent DIR` names a directory holding an earlier
 tree's `lj_plane_half.cu` and the headers it includes; it is built beside
 this tree's (ops/cuda_build, one nvcc each, all started together) and
-launched through its own C entry points (with the reaction buffer its fold
-reads). The other designs of K8's reactions (VARIANTS below) are this
+launched through its own C entry points (before the walk: with the
+reaction buffer its fold reads; on the walk, `on_walk`: as this tree's).
+The other designs of K8's reactions (VARIANTS below) are this
 tree's source with its reaction policy or its landing of the sums
 replaced, each built in a temporary directory: "shared_atomics",
 "rotated", "transposed" and "planes" compute K8 and are held to its
@@ -59,8 +60,8 @@ from .redesign import (SEED, card, check, device_times, jittered,
 from .timing import say
 
 _PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# the earlier tree's entry points: fx, fy, fz and the reaction buffer;
-# this tree's: one output
+# the entry points of a tree before the walk: fx, fy, fz and the reaction
+# buffer; of this tree and any on the walk (`on_walk`): one output
 PARENT_ARGTYPES = {stem: [_PTR] * 9 + [_I32] * 4 + [_F64] * 4 + [_PTR]
                    for stem in ("lj_plane_half", "lj_plane_half_fwd")}
 NEW_ARGTYPES = {stem: [_PTR] * 6 + [_I32] * 4 + [_F64] * 4 + [_PTR]
@@ -322,10 +323,17 @@ def variant_source(dest: Path, edits: dict) -> Path:
     return out
 
 
-def half_calls(sp, parent, variants: dict) -> dict:
+def on_walk(source: Path) -> bool:
+    """Whether a tree's lj_plane_half.cu has this tree's entry points
+    (the walk's: one output, and a launch-shape entry)."""
+    return "lj_plane_half_shape" in source.read_text()
+
+
+def half_calls(sp, parent, variants: dict, parent_walks: bool) -> dict:
     """The contenders on the planes `sp`: {"K8": {name: (call, twin)},
     "P10": {...}}; every call returns three force planes, `twin` is the
-    plain result it is held to."""
+    plain result it is held to. `parent_walks`: the parent has this tree's
+    entry points (`on_walk`)."""
     key, prd, cap = sp.key, sp.prd, sp.cap
     _, lj1, lj2, cutsq = key
     nx, ny, nz = sp.ncells
@@ -346,11 +354,18 @@ def half_calls(sp, parent, variants: dict) -> dict:
         fn = getattr(parent, f"{stem}_{sfx}")
 
         def run():
-            if fn(*ptrs, out[0].data_ptr(), out[1].data_ptr(),
-                  out[2].data_ptr(), rbuf.data_ptr(), nx, ny, nz, cc,
-                  float(cap), lj1, lj2, cutsq, stream()) != 0:
+            if parent_walks:  # one output: K8 adds into zeros
+                buf, f = hk.output(ncell * cc, out.dtype, out.device,
+                                   stem == "lj_plane_half")
+                ptrs_out = (buf.data_ptr(),)
+            else:
+                f = out
+                ptrs_out = (out[0].data_ptr(), out[1].data_ptr(),
+                            out[2].data_ptr(), rbuf.data_ptr())
+            if fn(*ptrs, *ptrs_out, nx, ny, nz, cc, float(cap), lj1, lj2,
+                  cutsq, stream()) != 0:
                 raise RuntimeError(f"parent {stem} launch failed")
-            return out
+            return f
         return run
 
     def variant_call(name, lib):
@@ -387,15 +402,16 @@ def _flat3(forces):
     return torch.stack([a.reshape(-1) for a in forces])
 
 
-def measure(tag: str, sp, parent, variants, rounds: int,
-            inner: int) -> dict:
+def measure(tag: str, sp, parent, variants, rounds: int, inner: int,
+            parent_walks: bool = False) -> dict:
     """Check and time every contender on `sp`; say and return the line.
     Where K8 and lj_cell_force differ beyond the tolerance, say in how
     many components, and in how many their twins differ: a pair at the
     cutoff whose shifted coordinate the two stencils round in opposite
     frames."""
     entry = {"grid": list(sp.ncells), "cc": sp.cc}
-    for kernel, contenders in half_calls(sp, parent, variants).items():
+    for kernel, contenders in half_calls(sp, parent, variants,
+                                         parent_walks).items():
         errs = {k: check(f"{tag} {kernel} {k}", _flat3(fn()), _flat3(ref),
                          sp.buf.dtype)
                 for k, (fn, ref) in contenders.items()}
@@ -453,7 +469,9 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
                    for name, (make, _) in VARIANTS.items()}
         cuda_build.build(hk.SOURCE, old_src, *var_src.values(),
                          pair_kernels.SOURCE)
-        old = parent_library(old_src, PARENT_ARGTYPES)
+        walks = on_walk(old_src)
+        old = parent_library(old_src,
+                             NEW_ARGTYPES if walks else PARENT_ARGTYPES)
         libs = {name: parent_library(src, NEW_ARGTYPES)
                 for name, src in var_src.items()}
         regs = {tree: registers(src) for tree, src in (
@@ -474,12 +492,12 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
                 x = jittered(sim, dtype, JITTER)
                 tag = f"{size} {'f32' if dtype == torch.float32 else 'f64'}"
                 results[tag] = measure(tag, sorted_planes(sim, x, dtype),
-                                       old, libs, rounds, inner)
+                                       old, libs, rounds, inner, walks)
             if cells == 63:
                 sim.run(DECK_STEPS, thermo_every=DECK_STEPS)
                 tag = "1M deck f32"
                 results[tag] = measure(tag, sorted_planes(sim), old, libs,
-                                       rounds, inner)
+                                       rounds, inner, walks)
             del sim
             torch.cuda.empty_cache()
     if out:

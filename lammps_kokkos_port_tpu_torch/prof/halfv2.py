@@ -16,8 +16,8 @@ under the script's labels:
 
 each time the slope of k = 20 and 60 iterations of `carry + EPS * f`, as
 the script's `scan_time`. `zb` is the script's z chunk (TPU register
-tiling); here it is the number of a column's z cells one CUDA block walks
-at a time, one warp row each, so each zb line is a launch of its own shape
+tiling); here it is the number of cells (one warp each, consecutive z of
+a column) of one CUDA block, so each zb line is a launch of its own shape
 (the same forces).
 
 Run on the card: `python -m lammps_kokkos_port_tpu_torch.prof.halfv2`; on

@@ -4,19 +4,21 @@ Counterpart of benchmarks/prof/prof_kernel_iso.py on the bench/in.lj melt
 (`prof.grid.melt_sim`: cells 20, 32,000 atoms, f32, at setup). It prints
 the script's line for each mode of P5 (prof/column_half_kernels `iso_*`):
 
-  full        K8's forces, each reaction written to its neighbour cell;
-  batched     the same forces, the reactions grouped by (dx, dy) target
-              in the block before they are written;
+  full        K8's forces, each reaction landed on its candidate's row;
+  batched     the same forces, the reactions landed by (dx, dy) target and
+              z, then gathered by a fold;
   redonly     the forward sums plus the own block's reactions;
   noreverse   the forward sums only;
-  noassembly  the candidates never staged (every output NaN);
+  noassembly  the candidates never staged, every slot walked as a NaN
+              candidate (every output NaN);
 
 each the slope of k = 100 and 300 iterations of `carry + EPS * f`, best of
 3, as the script's `scan_time`; `batched` adds its max abs difference from
 `full` ("parity vs full": the same forces, summed in another order).
-`full` - `redonly` is the cost of writing and folding the reactions,
-`redonly` - `noreverse` that of their shared sums, `noreverse` -
-`noassembly` that of staging the candidates.
+`full` - `redonly` is the cost of landing the 13 neighbour blocks'
+reactions, `redonly` - `noreverse` that of the own block's; on the card's
+walk, which prunes the candidates, `noassembly` walks every slot and so
+times more pairs than `full` (csrc/lj_column_half.cu).
 
 Run on the card: `python -m lammps_kokkos_port_tpu_torch.prof.kernel_iso`;
 on the CPU: `main(cells=6, device="cpu", k1=1, k2=2, reps=1)`.

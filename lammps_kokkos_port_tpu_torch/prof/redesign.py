@@ -19,8 +19,9 @@ from .timing import say
 SEED = 87287
 # traces of one call before device_times gives up: a trace can miss device
 # records (all of them for a 2-microsecond ctypes launch, and some of the
-# first launches of a trace late in a long process, both seen on an H100)
-TRACE_ATTEMPTS = 5
+# first launches of a trace late in a long process, both seen on an H100;
+# five traces of one call in a row have lost records)
+TRACE_ATTEMPTS = 8
 
 
 def card() -> str:

@@ -12,9 +12,10 @@ under the script's labels:
 
 each the slope of k = 20 and 60 iterations of `carry + EPS * f`, as the
 script's `scan_time`. `zb` is the script's z chunk (TPU register tiling);
-here it is the number of a column's z cells one CUDA block walks at a
-time, one warp row each, so each line is a launch of its own shape (the
-same sums).
+here it is the number of cells (one warp each, consecutive z of a column)
+of one CUDA block, so each line is a launch of its own shape (the same
+sums); the pass is compiled for these chunks at the 20- and 6-cell melts
+(nz 12 and 3) and raises for any other.
 
 Run on the card: `python -m lammps_kokkos_port_tpu_torch.prof.zchunk`; on
 the CPU: `main(cells=6, device="cpu", k1=1, k2=2, reps=1)`.

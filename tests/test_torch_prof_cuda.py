@@ -351,26 +351,112 @@ def test_ablation_kernels_match_twins(cuda, dtype):
             ak.pair_only_approx(sp.key, sp.ncells, *live, ids, sp.prd)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+def _column_case(case, cuda, dtype):
+    """The column passes' arguments (key, ncells, idcap, gx, gy, gz, gi,
+    prd) on one of the inputs the walk finds hard."""
+    if case in ("melt", "permuted_ids_idcap0", "live_pad"):
+        sp = _planes(cuda, dtype)
+        col, idcap = sp.col, sp.cap
+        if case == "permuted_ids_idcap0":
+            ids = sp.ids.clone()
+            real = ids >= 0
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            ids[real] = ids[real][torch.randperm(
+                int(real.sum()), generator=gen, device=cuda)]
+            col, idcap = (*col[:3], ids.reshape(col[3].shape)), 0
+        elif case == "live_pad":
+            col = _live_pad(sp)[0]
+        return (sp.key, sp.ncells, idcap, *col, sp.prd)
+    if case == "corner_pad_and_atom":  # pads not apart (f64)
+        g, valid, prd = (a.to(cuda) for a in _corner_planes(True))
+        ncells = (3, 3, 3)
+    else:
+        ncells, cc = {"cc64_interleaved": ((3, 3, 4), 64),
+                      "nx2_ny2": ((2, 2, 4), 32)}[case]
+        ncell = ncells[0] * ncells[1] * ncells[2]
+        counts = [(c * 7) % (cc // 2) + 4 for c in range(ncell)]
+        if cc == 64:
+            counts[5] = 40  # two row passes
+        g, prd, valid = _lattice_grid(ncells, cc, counts, 13, dtype, cuda)
+    cc = g.shape[-1]
+    shape = (ncells[0] * ncells[1], ncells[2], cc)
+    return (KEY, ncells, valid.numel(), *(a.reshape(shape) for a in g),
+            _ids(valid).to(g.dtype).reshape(shape), prd.to(g.dtype))
+
+
+COLUMN_CASES = [(dt, case) for dt in DTYPES for case in (
+    "melt", "permuted_ids_idcap0", "live_pad", "cc64_interleaved",
+    "nx2_ny2")] + [(torch.float64, "corner_pad_and_atom")]
+
+
+@pytest.mark.parametrize("dtype,case", COLUMN_CASES)
 @pytest.mark.parametrize("name", list(chk.PASSES))
-def test_column_half_passes_match_twins(cuda, dtype, name, monkeypatch):
-    sp = _planes(cuda, dtype)
-    args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+def test_column_half_passes_match_twins(cuda, dtype, case, name,
+                                        monkeypatch):
+    """Each pass against its twin on the inputs the walk finds hard: ids
+    out of row order with idcap 0 (the id rule decides across cells), a
+    pad row 0.84 from a real row, pads meeting across the periodic corner
+    (not apart: every row walked, the mask decides), 40 atoms in a cell of
+    cc 64 (two row passes) among interleaved pads, and an nx = 2, ny = 2
+    grid (entries (1, -1) and (1, 1) reach one column, as two target
+    blocks: P8's rc is held block by block)."""
+    args = _column_case(case, cuda, dtype)
     ref = chk.reference(name, *args)
     _no_plain(monkeypatch, chk, "_plain")
     fn = chk.PASSES[name]
-    for zb in (None, 1, 2):  # launch shapes: the same results
-        before = fn.launches
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if name == "iso_noassembly":
+        assert all(bool(a.isnan().all()) for a in got)
+        return
+    if name == "writeonce":
+        nx, ny, nz = args[1]
+        rc, rc_ref = (a.reshape(nx * ny, 3, nz, len(chk.TARGETS), -1)
+                      for a in (got[3], ref[3]))
+        for t in range(len(chk.TARGETS)):
+            _assert_close(rc[:, :, :, t], rc_ref[:, :, :, t], dtype)
+        got, ref = got[:3], ref[:3]
+    if max(a.abs().max().item() for a in ref) > 0:
+        _assert_close(got, ref, dtype)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(chk.PASSES))
+def test_column_half_z_chunks(cuda, dtype, name):
+    """Every z chunk a pass is compiled for (chk.ZB: those its entry points
+    ask for) gives its twin's result; a chunk it is not compiled for
+    raises before any launch."""
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+    ref = chk.reference(name, *args)
+    fn = chk.PASSES[name]
+    for zb in (None, *chk.ZB[name]):
         got = fn(*args, zb=zb)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
         if name == "iso_noassembly":
             assert all(bool(a.isnan().all()) for a in got)
-        elif name == "writeonce":
-            _assert_close(got[:3], ref[:3], dtype)
-            _assert_close(got[3:], ref[3:], dtype)
         else:
             _assert_close(got, ref, dtype)
+    before = fn.launches
+    with pytest.raises(ValueError, match="is not compiled"):
+        fn(*args, zb=5)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_iso_full_equals_k8(cuda, dtype):
+    """P5 full and K8 compute one function on one buffer: every component
+    within the tolerance."""
+    sp = _planes(cuda, dtype)
+    iso = chk.iso_full(sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
+    k8 = half_kernels.lj_plane_half_force(sp.key, sp.ncells, sp.cap,
+                                          *sp.plane, sp.prd)
+    _assert_close([a.reshape(-1) for a in iso],
+                  [a.reshape(-1) for a in k8], dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
