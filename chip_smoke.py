@@ -51,8 +51,14 @@ checks them on the card:
  13. the sorted-kernel ablation entry point, `prof.sorted_ablate.main` at
      the 32k deck (every label of benchmarks/prof/prof_sorted_ablate.py),
      with K7's and the P9 kernels' launches counted over it; K7 against
-     its plain version (f32, f64), the P9 kernels against theirs (f32),
-     and asm_only's staging loads counted in its SASS (cuobjdump);
+     its plain version (f32, f64; its launch shape), and on grids of 1, 2
+     and 3 cells per dim, at cc 64, and on pairs planted at the cutoff
+     across each wrapped face (each row's decision as its twin's), two
+     launches bit-equal; lj_cell_force on those pairs (both rows take the
+     Newton-half K1's decision, ROADMAP F12); the P9 kernels against
+     theirs (f32), pair_only at 14 cc and twice the lanes in one call (the
+     time must follow the lanes: ratio >= 1.8), and asm_only's staging
+     loads counted in its SASS (cuobjdump);
  14. the Newton-half entry point, `prof.plane_half.main` at cells 20 and 63
      (the labels of prof_v3_32k.py and prof_v3_iso.py), with K8's and
      P10's launches counted over it and their launch shapes; K8 and P10
@@ -83,8 +89,10 @@ checks them on the card:
      (P7 is k1's instance), P1 and P12 counted over them; each against its
      plain version (32k f32 and f64; P12 f32, per element against the sum
      of the magnitudes of its terms), P3 against lj_cell_force, P6 k1 and
-     k2 against each other and K7 and with a pad in the cutoff, P1 in both
-     modes at G = 512 and G = 128, and each kernel's device time per call.
+     k2 against each other and K7 and with a pad in the cutoff (K7 against
+     its twin there too), k1 (P7's instance) on phase 13's grids and
+     planted pairs, P1 in both modes at G = 512 and G = 128, and each
+     kernel's device time per call.
 
 The `[rank]` lines order the kernels for redesign: the decks' kernels by
 launches per step times device time above the bound at each deck's size,
@@ -101,8 +109,10 @@ at 32k.) The plain versions, many kernels each, keep CUDA-event medians
 
 Every kernel in the kernel line carries its bound (bound_ms, bound_by:
 the larger of bytes over the HBM rate and operations over the type's
-peak, for this run's inputs; PEAK_* and *_PAIR_OPS below) and library_ms
-(null: no single PyTorch call computes these passes).
+peak, for this run's inputs; PEAK_* and *_PAIR_OPS below; for the P9 and
+P4 pair ablations the work they define, every lane of every row, named
+in `bound_work`) and library_ms (null: no single PyTorch call computes
+these passes).
 
 Every failed check raises (non-zero exit, no result line). The last two
 lines are the kernel table and the result, one JSON object each.
@@ -191,13 +201,28 @@ LJ_FWD_PAIR_OPS = 22
 EAM_RHO_PAIR_OPS = 9 + 2 + (2 + 3 * 29) + 2
 EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
 EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
-# the kernels redesigned on the shared candidate walk (csrc/cell_walk.cuh)
+# the kernels redesigned for Hopper: on the shared candidate walk
+# (csrc/cell_walk.cuh), and the P9 and P4 pair ablations with more rows in
+# flight (lj_ablate, whose line's times are pair_only's, and
+# lj_ablate_pair512)
 REDESIGNED = ("lj_cell_force", "lj_cell_dense", "eam_cell_rho",
               "eam_cell_force", "lj_plane_half", "lj_plane_half_fwd",
               *(f"lj_column_half_{name}" for name in (
                   "iso_full", "iso_batched", "iso_redonly", "iso_noreverse",
                   "iso_noassembly", "writeonce", "halfv2", "halfv2_approx",
-                  "zchunk_fwd", "zchunk_fused", "cc32_half")))
+                  "zchunk_fwd", "zchunk_fused", "cc32_half")),
+              "lj_column_force", "lj_column_v3_k1", "lj_ablate",
+              "lj_ablate_pair512")
+# the bound of the pair ablations: the work they define, every lane of every
+# row through the body, not only the pairs a row needs
+ABLATION_BOUND = "defined: cap rows x lanes x LJ_FWD_PAIR_OPS"
+# pair_only's device time at twice the lanes over its time at 14 * cc = 448
+# (the body runs on every lane, so the time must follow the lanes)
+LANE_RATIO_MIN = 1.8
+# the grids the column walk is held on beyond the melt: 1, 2 and 3 cells
+# per dim, and cc 64 with a 40-atom cell (two row passes)
+EDGE_GRIDS = (((1, 1, 1), 16), ((2, 2, 4), 32), ((3, 3, 3), 32),
+              ((3, 3, 4), 64))
 # the library call column: no single PyTorch call computes these passes
 LIBRARY_MS = None
 EAM_STEPS = 200
@@ -1036,6 +1061,100 @@ def asm_only_loads() -> dict:
     return loads
 
 
+def column_edge_checks(dev, name: str, fn, plain) -> dict:
+    """K7 or P6 k1 (`fn`, its twin `plain`) on the inputs its walk finds
+    hard, f32 (rtol 1e-4) and f64 (1e-10): lattice grids of EDGE_GRIDS
+    (prof.planted.lattice_grid: jittered atoms at random lanes among pads,
+    float ids); a pair planted across each periodic face at r2 = cutsq in
+    K1's frame and one ulp either side (prof.planted.wrapped_pairs), each
+    row taking its twin's decision, which is the candidate frame's, as JAX
+    K7 shifts the candidate; and two launches on the melt-sized lattice
+    bit-equal. Returns {"max_abs_err", "checks"}."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.prof import planted
+
+    key = ("lj", 48.0, 24.0, 6.25)
+    errs, checks = [], 0
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        for ncells, cc in EDGE_GRIDS:
+            ncell = ncells[0] * ncells[1] * ncells[2]
+            counts = [(c * 5) % (min(cc, 32) // 2) + 2 for c in range(ncell)]
+            if cc > 32:
+                counts[ncell // 2] = 40
+            g, prd, valid = planted.lattice_grid(ncells, cc, counts, 5, dtype,
+                                                 dev)
+            ids = torch.where(valid, torch.arange(valid.numel(), device=dev)
+                              .reshape(valid.shape), -1).to(dtype)
+            shape = (ncells[0] * ncells[1], ncells[2], cc)
+            args = (key, ncells, *(a.reshape(shape) for a in g),
+                    ids.reshape(shape), prd)
+            got = fn(*args)
+            errs.append(check_close(f"{name} grid {ncells} x cc {cc} {dtype}",
+                                    got, plain(*args), rtol))
+            if ncells == (3, 3, 4):
+                again = fn(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise RuntimeError(f"{name}: two launches differ")
+            checks += 1
+        for case in planted.CASES:
+            prd = torch.full((3,), 10.2, dtype=dtype)
+            g, gi, rows, dec = planted.wrapped_pairs((3, 3, 3), 32, prd,
+                                                     key[3], dtype, case,
+                                                     device=dev)
+            args = (key, (3, 3, 3), *(a.reshape(9, 3, 32) for a in g),
+                    gi.reshape(9, 3, 32), prd.to(dev))
+            got, ref = fn(*args), plain(*args)
+            errs.append(check_close(f"{name} wrapped pair {case} {dtype}",
+                                    got, ref, rtol))
+            want = {axis: d["candidate"] for axis, d in dec.items()}
+            taken = [planted.taken(torch.stack([a.reshape(-1) for a in f]),
+                                   rows) for f in (got, ref)]
+            if taken != [want, want]:
+                raise RuntimeError(f"{name} wrapped pair {case} {dtype}: "
+                                   f"decisions {taken}, want {want}")
+            checks += 1
+    log(f"[edge] {name}: {checks} checks against its twin (grids "
+        f"{[g for g, _ in EDGE_GRIDS]}, cc up to 64, pairs at the cutoff "
+        f"across each wrapped face, two launches bit-equal), max abs err "
+        f"{max(errs):.3e}")
+    return {"max_abs_err": max(errs), "checks": checks}
+
+
+def cell_force_frame_check(dev) -> float:
+    """lj_cell_force on a pair planted across each periodic face at r2 =
+    cutsq in K1's frame and one ulp either side, f32 and f64: both rows of
+    each pair take K1's one decision in the kernel and its twin (ROADMAP
+    F12). Returns the max abs error."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import pair_kernels
+    from lammps_kokkos_port_tpu_torch.prof import planted
+
+    key = ("lj", 48.0, 24.0, 6.25)
+    errs = []
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        for case in planted.CASES:
+            prd = torch.full((3,), 10.2, dtype=dtype)
+            g, _, rows, dec = planted.wrapped_pairs((3, 3, 3), 32, prd,
+                                                    key[3], dtype, case,
+                                                    device=dev)
+            args = (key, (3, 3, 3), *g, prd.to(dev))
+            got = pair_kernels.lj_cell_force(*args)
+            ref = pair_kernels.lj_cell_force_reference(*args)
+            errs.append(check_close(f"lj_cell_force wrapped pair {case} "
+                                    f"{dtype}", got, ref, rtol))
+            want = {axis: d["half"] for axis, d in dec.items()}
+            taken = [planted.taken(f, rows) for f in (got, ref)]
+            if taken != [want, want]:
+                raise RuntimeError(f"lj_cell_force wrapped pair {case} "
+                                   f"{dtype}: decisions {taken}, want {want}")
+    log(f"[edge] lj_cell_force: pairs at the cutoff across each wrapped face"
+        f" (f32, f64, 3 cases): both rows take K1's decision, max abs err "
+        f"{max(errs):.3e}")
+    return max(errs)
+
+
 def phase_sorted_ablate(dev) -> dict:
     """13. prof.sorted_ablate.main at the 32k deck, with the launches of K7
     and the P9 kernels counted over it; then K7 against its twin (f32 and
@@ -1083,6 +1202,14 @@ def phase_sorted_ablate(dev) -> dict:
         if dtype == torch.float32:
             out["lj_column_force"] = {
                 "launches": launches["lj_column_force"], **r}
+    log_walk_launch("lj_column_force", sp.ncells, sp.cc,
+                    lambda dt: ck.launch_shape(sp.ncells, dt))
+    edge = column_edge_checks(dev, "K7 lj_column_force", ck.lj_column_force,
+                              ck.lj_column_force_reference)
+    entry = out["lj_column_force"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], edge["max_abs_err"])
+    entry["edge_checks"] = edge["checks"]
+    entry["frame_max_abs_err_lj_cell_force"] = cell_force_frame_check(dev)
 
     # P9 on the script's inputs (times, asm_only's values) and on live ones
     sp = sorted_planes(sim)
@@ -1098,8 +1225,9 @@ def phase_sorted_ablate(dev) -> dict:
     live = (sp.ncells, *(near3(a) for a in sp.col[:3]),
             torch.remainder(torch.arange(gi.numel(), device=dev), 4).to(
                 gi.dtype).reshape(gi.shape) - 1, sp.prd)
-    # pair_only's needed work: 14*cc candidates for each row it keeps
-    # (0 <= id < FILL and within the cutoff of the constant candidate)
+    # the rows whose pair math is live on the melt (0 <= id < FILL within
+    # the cutoff of the constant candidate): the bound counts every row
+    # and lane all the same, the work the ablation defines
     ref = ak.pair_only_reference(sp.key, *args)
     d2 = sum((a - ak.FILL) ** 2 for a in sp.flat[:3]).reshape(-1)
     keep = int(((sp.ids >= 0) & (sp.ids < ak.FILL)
@@ -1110,21 +1238,42 @@ def phase_sorted_ablate(dev) -> dict:
     log(f"[prof-ablate] pair_only on the melt: {keep} rows with 0 <= id < "
         f"{ak.FILL} within the cutoff, max|f| "
         f"{max(a.abs().max().item() for a in ref):.3e}")
+    lanes = 14 * sp.cc
     for name, rtol in (("pair_only", 1e-4), ("pair_only_approx", 1e-4)):
         fn = getattr(ak, name)
         err = check_close(f"P9 {name} live f32", fn(sp.key, *live),
                           ak.pair_only_reference(sp.key, *live), rtol)
         r = timed_check(f"P9 {name} 32k f32", lambda *a, fn=fn: fn(
             sp.key, *a), lambda *a: ak.pair_only_reference(sp.key, *a),
-            args, rtol, bound_of(keep * 14 * sp.cc, LJ_FWD_PAIR_OPS,
-                                 sp.cap * 7 * item, torch.float32))
+            args, rtol, {**bound_of(sp.cap * lanes, LJ_FWD_PAIR_OPS,
+                                    sp.cap * 7 * item, torch.float32),
+                         "bound_work": ABLATION_BOUND})
         variants[name] = {**r, "max_abs_err": max(err, r["max_abs_err"])}
+    # the body runs on every lane: twice the lanes, about twice the time
+    wide = check_close("P9 pair_only live f32 at twice the lanes",
+                       ak.pair_only(sp.key, *live, lanes=2 * lanes),
+                       ak.pair_only_reference(sp.key, *live,
+                                              lanes=2 * lanes), 1e-4)
+    lane_ms = device_ms({n: (lambda n=n: ak.pair_only(sp.key, *args,
+                                                      lanes=n))
+                         for n in (lanes, 2 * lanes)})
+    ratio = lane_ms[2 * lanes] / lane_ms[lanes]
+    log(f"[prof-ablate] pair_only device time at {2 * lanes} lanes over "
+        f"{lanes} (same call): {lane_ms[2 * lanes]:.4f} / "
+        f"{lane_ms[lanes]:.4f} = {ratio:.3f} (at least {LANE_RATIO_MIN}); "
+        f"max abs err at {2 * lanes} lanes {wide:.3e}")
+    if ratio < LANE_RATIO_MIN:
+        raise RuntimeError(f"pair_only: {ratio:.3f} times the time at twice "
+                           "the lanes: the body does not run on every lane")
+    variants["pair_only"]["lanes_ratio"] = {"lanes": [lanes, 2 * lanes],
+                                            "ms": list(lane_ms.values()),
+                                            "ratio": ratio}
     for name, v in variants.items():
         v["launches"] = launches[name]
     out["lj_ablate"] = {
         **{k: variants["pair_only"][k] for k in
            ("ms", "device_ms", "plain_ms", "pairs", "bound_ms", "bound_by",
-            "library_ms")},
+            "bound_work", "library_ms")},
         "launches": sum(v["launches"] for v in variants.values()),
         "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
         "variants": variants, "asm_only_sass_ldg": loads}
@@ -1589,7 +1738,10 @@ def phase_last_sites(dev) -> dict:
         for d in range(3):
             flat[d][real + 1] = flat[d][real] + (0.84 if d == 0 else 0.0)
         pargs = (sp.key, sp.ncells, *pcol, sp.prd)
-        k7_pad = ck.lj_column_force(*pargs)[0].reshape(-1)[real].item()
+        k7_pad = ck.lj_column_force(*pargs)
+        check_close(f"K7 with a live pad {dtype}", k7_pad,
+                    ck.lj_column_force_reference(*pargs), rtol)
+        k7_pad = k7_pad[0].reshape(-1)[real].item()
         for name, fn, grouped in (("lj_column_v3_k1", v3k.v3_k1, False),
                                   ("lj_column_v3_k2", v3k.v3_k2, True)):
             got = fn(*pargs)
@@ -1609,9 +1761,6 @@ def phase_last_sites(dev) -> dict:
                                           dtype=dtype) for a in sp.col[:3]))
         ids = torch.remainder(torch.arange(gi.numel(), device=dev), 4).to(
             dtype).reshape(gi.shape) - 1
-        d2 = sum((a - ak.FILL) ** 2 for a in sp.flat[:3]).reshape(-1)
-        keep = int(((sp.ids >= 0) & (sp.ids < ak.FILL)
-                    & (d2 < sp.key[-1])).sum())
         melt = (sp.key, sp.ncells, *sp.col, sp.prd)
         checked["lj_ablate_pair512"] = (max(
             check_close(f"P4 pair_only lanes=512 live {dtype}",
@@ -1622,7 +1771,8 @@ def phase_last_sites(dev) -> dict:
             check_close(f"P4 pair_only lanes=512 32k {dtype}",
                         ak.pair_only(*melt, lanes=512),
                         ak.pair_only_reference(*melt, lanes=512), rtol)),
-            bound_of(keep * 512, LJ_FWD_PAIR_OPS, nbytes, dtype))
+            {**bound_of(sp.cap * 512, LJ_FWD_PAIR_OPS, nbytes, dtype),
+             "bound_work": ABLATION_BOUND})
         timed["lj_ablate_pair512"] = lambda: ak.pair_only(*melt, lanes=512)
         plain["lj_ablate_pair512"] = lambda: ak.pair_only_reference(
             *melt, lanes=512)
@@ -1713,6 +1863,11 @@ def phase_last_sites(dev) -> dict:
         "no single PyTorch call: a gather, a sum over the windows and a "
         "scale")
     out["lj_column_v3_k1"]["also_replaces"] = [P7_SITE]
+    edge = column_edge_checks(dev, "P6 k1 (P7) lj_column_v3_k1", v3k.v3_k1,
+                              v3k.v3_reference)
+    entry = out["lj_column_v3_k1"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], edge["max_abs_err"])
+    entry["edge_checks"] = edge["checks"]
     return out
 
 
@@ -1735,9 +1890,10 @@ def rank(kernels: list, decks: list) -> None:
         per.setdefault(name, []).append(
             (deck, per_step, per_step * (e["device_ms"] - e["bound_ms"])))
     log("[rank] decks' kernels, launches per step x (device_ms - bound_ms)"
-        " at the deck's size, ms per step of each deck ([walk]: redesigned "
-        "on the shared candidate walk): " + "; ".join(
-            f"{name}{' [walk]' if name in REDESIGNED else ''} "
+        " at the deck's size, ms per step of each deck ([redesigned]: "
+        "REDESIGNED, on the shared candidate walk or with more rows in "
+        "flight): " + "; ".join(
+            f"{name}{' [redesigned]' if name in REDESIGNED else ''} "
             f"{sum(t[2] for t in terms):.4f} (" + ", ".join(
                 f"{deck} {n:.3f} x -> {v:.4f}" for deck, n, v in terms) + ")"
             for name, terms in sorted(
@@ -1746,8 +1902,9 @@ def rank(kernels: list, decks: list) -> None:
                     e.get("at", "32k f32")) for e in kernels
                    if e["name"] not in per), reverse=True)
     log("[rank-prof] profiling-only kernels, one call each, device_ms - "
-        "bound_ms, ms ([walk] as above): " + ", ".join(
-            f"{name}{' [walk]' if name in REDESIGNED else ''} {v:.4f} ({at})"
+        "bound_ms, ms ([redesigned] as above): " + ", ".join(
+            f"{name}{' [redesigned]' if name in REDESIGNED else ''} "
+            f"{v:.4f} ({at})"
             for v, name, at in prof))
 
 

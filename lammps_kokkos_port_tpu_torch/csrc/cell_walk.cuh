@@ -1,7 +1,7 @@
 // The candidate walk of the port's sorted and dense cell kernels (sm_90a):
-// lj_cell_force.cu, eam_cell.cu, lj_plane_half.cu and lj_column_half.cu
-// (the sorted layout, sorted_grid.cuh) and lj_cell_dense.cu (list mode
-// "cell"). The other cell kernels keep cell_stencil.cuh's `sweep`.
+// lj_cell_force.cu, eam_cell.cu, lj_plane_half.cu, lj_column_half.cu and
+// lj_column_full.cu's K7 and P6 k1 (the sorted layout, sorted_grid.cuh)
+// and lj_cell_dense.cu (list mode "cell").
 //
 // Unit of work: one warp owns up to 32 rows of one cell (a row pass) and
 // walks that cell's stencil entries on its own (G::kEntries neighbour
@@ -27,7 +27,8 @@
 //           candidate where any lane is inside the cutoff;
 // or with one pass the body sits inside the candidate loop. Pass 2
 // recomputes the displacement and r2 with the same rounded operations as
-// pass 1, so the body sees the bits the cutoff test saw. Candidates are
+// pass 1, so the body sees the bits the cutoff test saw (but in a framed
+// tile, below). Candidates are
 // staged as three planes (x, y, z) or, where they carry a fourth word (the
 // atom index, or EAM's fp), as packed (x, y, z, w) records: one 16-byte
 // shared load in f32.
@@ -38,6 +39,20 @@
 // from the candidate's stencil entry) and pass 2 hands every pair to
 // R::pair, which lands the reaction there (lj_plane_half.cu,
 // lj_column_half.cu). NoReactions compiles that out.
+//
+// Frames (lj_cell_force.cu, sorted_grid::FramedGrid): a geometry with
+// kHalfFrames decides each pair of a full-stencil walk in the frame in
+// which the Newton-half kernels form it, so that both rows of a pair take
+// the cutoff decision the half stencil takes once for the pair. An entry
+// whose first nonzero offset is negative (a mirrored entry) holds
+// candidates whose half-stencil frame is the candidate's own: where it
+// wraps, its records are staged unshifted, pass 1 forms r2 from the own
+// row moved by -shift, d = (own - shift) - cand (and the prune tests the
+// moved rows' box), and then the records are shifted as the plain walk
+// stages them, so pass 2 is the plain one: there the body sees r2 formed
+// in the candidate's frame, up to an ulp of the box length apart from the
+// decided one (the lj body reads no cutoff). A batch with no such tile
+// runs the plain passes, and a cell with no such entry pays nothing.
 //
 // The pair body `B` is a template parameter (LjBody below; eam_cell.cu's
 // two bodies):
@@ -228,6 +243,26 @@ __device__ __forceinline__ bool near_box(const Box<T>& b, const Cand<T>& c,
   return s <= near_cutsq;
 }
 
+// near_box for the own rows moved by -t (a framed tile, HalfFrames below):
+// rounding is monotonic, so the moved rows lie in [lo - t, hi - t], each
+// bound rounded (their box exactly: lo and hi are rows), and the proof
+// above holds in that frame
+template <typename T>
+__device__ __forceinline__ bool near_moved_box(const Box<T>& b,
+                                               const T (&t)[3],
+                                               const Cand<T>& c,
+                                               T near_cutsq) {
+  const T cs[3] = {c.x, c.y, c.z};
+  T s = T(0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T g = max(max((b.lo[a] - t[a]) - cs[a], cs[a] - (b.hi[a] - t[a])),
+                    T(0));
+    s = Rn<T>::add(s, Rn<T>::mul(g, g));
+  }
+  return s <= near_cutsq;
+}
+
 // asynchronous 4- or 8-byte copy from device to shared memory (cp.async:
 // no register holds the value, so a batch's loads fly while the warp
 // computes the previous one)
@@ -297,6 +332,18 @@ template <typename G>
 struct FullMasks<G, std::void_t<decltype(G::kFullMasks)>>
     : std::bool_constant<G::kFullMasks> {};
 
+// G::kHalfFrames, where a geometry has it (sorted_grid::FramedGrid, a
+// full stencil in the 27-entry order of SortedGrid, whose Entry holds the
+// shifts shx, shy, shz): entries 0-12 (first nonzero offset negative) that
+// wrap are decided in the frame of the Newton-half stencil (above); false
+// for a geometry without the member
+template <typename G, typename = void>
+struct HalfFrames : std::false_type {};
+template <typename G>
+struct HalfFrames<G, std::void_t<decltype(G::kHalfFrames)>>
+    : std::bool_constant<G::kHalfFrames> {};
+constexpr int kMirrored = 13;  // entries 0-12 of the full stencil's 27
+
 template <typename T, typename G>
 __device__ __forceinline__ void issue_batch(const G& geo,
                                             const typename G::Entry& mine,
@@ -320,6 +367,127 @@ __device__ __forceinline__ void issue_batch(const G& geo,
   copy_commit();
 }
 
+// The axes (bit a: axis a) in which tile g of a batch is framed: 3 bits a
+// tile in `frames`; a framed tile's entry shifts axis a by sh[a] (one
+// value per axis for all the wrapped mirrored entries of a cell).
+__device__ __forceinline__ unsigned tile_frames(unsigned frames, int g) {
+  return frames >> (3 * g) & 7u;
+}
+
+// Pass 1 of a batch: the in-cutoff candidates of each tile, as a mask per
+// lane. With Framed, a framed tile holds a wrapped mirrored entry's
+// unshifted records, and its r2 is formed from the own row moved by -sh
+// in its framed axes.
+template <bool Framed, typename T, typename G>
+__device__ __forceinline__ void pass_masks(const G& geo, const Cand<T>& own,
+                                           const T (&sh)[3], unsigned frames,
+                                           int t0, int nb, int self_tile,
+                                           unsigned self_bit, T cutsq,
+                                           const SmemOf<T, G>& sm) {
+  const int lane = threadIdx.x;
+  const int* bounds = sm.bounds();
+  unsigned* masks = sm.masks();
+  for (int g = 0; g < nb; ++g) {
+    const int base = g * kTile;
+    const int n = bounds[g];
+    unsigned m = 0;
+    if constexpr (FullMasks<G>::value) {
+      m = n == kTile ? ~0u : (1u << n) - 1u;
+    } else {
+      Cand<T> o = own;
+      if constexpr (Framed) {
+        const unsigned bits = tile_frames(frames, g);
+        if (bits & 1u) o.x = own.x - sh[0];
+        if (bits & 2u) o.y = own.y - sh[1];
+        if (bits & 4u) o.z = own.z - sh[2];
+      }
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const Cand<T> c = sm.get(base + j);
+        T dx, dy, dz;
+        const T r2 = geo.dist(o, c, dx, dy, dz);
+        if (r2 < cutsq && geo.other(o, c)) m |= 1u << j;
+      }
+    }
+    if (t0 + g == self_tile) m &= ~self_bit;
+    masks[base + lane] = m;
+  }
+}
+
+// The framed tiles' records shifted into the candidate's frame, as the
+// plain walk stages them, for pass 2 (every lane of the warp, each its
+// slot of every tile: a slot past the tile's count is never read).
+template <typename T, typename G>
+__device__ __forceinline__ void restage(const T (&sh)[3], unsigned frames,
+                                        const SmemOf<T, G>& sm) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < SmemOf<T, G>::kTiles; ++g) {
+    const unsigned bits = tile_frames(frames, g);
+    if (bits == 0) continue;  // warp-uniform; 0 past the batch's tiles
+    Cand<T> c = sm.get(g * kTile + lane);
+    if (bits & 1u) c.x += sh[0];
+    if (bits & 2u) c.y += sh[1];
+    if (bits & 4u) c.z += sh[2];
+    sm.put(g * kTile + lane, c);
+  }
+}
+
+// Pass 2 of a batch, for a live row: the body over this lane's own list,
+// in walk order.
+template <typename T, typename G, typename B, typename R>
+__device__ __forceinline__ void pass_pairs(const G& geo, const B& body,
+                                           const Cand<T>& own, int nb,
+                                           const SmemOf<T, G>& sm,
+                                           T (&acc)[B::kAcc],
+                                           const R& react) {
+  const int lane = threadIdx.x;
+  const unsigned* masks = sm.masks();
+  int g = 0;
+  unsigned m = masks[lane];
+  if constexpr (B::kPairs == 1) {
+    for (;;) {
+      while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+      if (m == 0) break;
+      const int s1 = g * kTile + __ffs(m) - 1;
+      const Cand<T> c = sm.get(s1);
+      m &= m - 1;
+      T d[3];
+      const T r = geo.dist(own, c, d[0], d[1], d[2]);
+      const T f = body.term(own, c, r);
+#pragma unroll
+      for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
+      if constexpr (R::kOn) react.template pair<B>(sm, s1, d, f);
+    }
+  } else {
+    // two pairs an iteration: two independent chains through the body
+    for (;;) {
+      while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+      if (m == 0) break;
+      const int s1 = g * kTile + __ffs(m) - 1;
+      m &= m - 1;
+      while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+      const bool two = m != 0;
+      const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
+      m &= m - 1;
+      const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
+      T d1[3], d2[3];
+      const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
+      const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
+      const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+#pragma unroll
+      for (int a = 0; a < B::kAcc; ++a) {
+        acc[a] += B::part(d1, f1, a);
+        if (two) acc[a] += B::part(d2, f2, a);
+      }
+      if constexpr (R::kOn) {
+        react.template pair<B>(sm, s1, d1, f1);
+        if (two) react.template pair<B>(sm, s2, d2, f2);
+      }
+    }
+  }
+}
+
 // Pass 1 and pass 2 (or the one pass) of a batch, for a live row.
 template <typename T, typename G, typename B, typename R>
 __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
@@ -329,77 +497,16 @@ __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
                                              const SmemOf<T, G>& sm,
                                              T (&acc)[B::kAcc],
                                              const R& react) {
-  const int lane = threadIdx.x;
-  int* bounds = sm.bounds();
   if constexpr (G::kTwoPass) {
-    // pass 1: the in-cutoff candidates of each tile, as a mask per lane
-    unsigned* masks = sm.masks();
-    for (int g = 0; g < nb; ++g) {
-      const int base = g * kTile;
-      const int n = bounds[g];
-      unsigned m = 0;
-      if constexpr (FullMasks<G>::value) {
-        m = n == kTile ? ~0u : (1u << n) - 1u;
-      } else {
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const Cand<T> c = sm.get(base + j);
-          T dx, dy, dz;
-          const T r2 = geo.dist(own, c, dx, dy, dz);
-          if (r2 < cutsq && geo.other(own, c)) m |= 1u << j;
-        }
-      }
-      if (t0 + g == self_tile) m &= ~self_bit;
-      masks[base + lane] = m;
-    }
-    // pass 2: the body over this lane's own list, in walk order
-    int g = 0;
-    unsigned m = masks[lane];
-    if constexpr (B::kPairs == 1) {
-      for (;;) {
-        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-        if (m == 0) break;
-        const int s1 = g * kTile + __ffs(m) - 1;
-        const Cand<T> c = sm.get(s1);
-        m &= m - 1;
-        T d[3];
-        const T r = geo.dist(own, c, d[0], d[1], d[2]);
-        const T f = body.term(own, c, r);
-#pragma unroll
-        for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
-        if constexpr (R::kOn) react.template pair<B>(sm, s1, d, f);
-      }
-    } else {
-      // two pairs an iteration: two independent chains through the body
-      for (;;) {
-        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-        if (m == 0) break;
-        const int s1 = g * kTile + __ffs(m) - 1;
-        m &= m - 1;
-        while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
-        const bool two = m != 0;
-        const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
-        m &= m - 1;
-        const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
-        T d1[3], d2[3];
-        const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
-        const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
-        const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
-#pragma unroll
-        for (int a = 0; a < B::kAcc; ++a) {
-          acc[a] += B::part(d1, f1, a);
-          if (two) acc[a] += B::part(d2, f2, a);
-        }
-        if constexpr (R::kOn) {
-          react.template pair<B>(sm, s1, d1, f1);
-          if (two) react.template pair<B>(sm, s2, d2, f2);
-        }
-      }
-    }
+    const T none[3] = {T(0), T(0), T(0)};
+    pass_masks<false>(geo, own, none, 0u, t0, nb, self_tile, self_bit, cutsq,
+                      sm);
+    pass_pairs(geo, body, own, nb, sm, acc, react);
   } else {
     static_assert(!R::kOn, "reactions need the two-pass walk");
     // one pass: the body inside the candidate loop, taken by the warp
     // wherever any lane is inside the cutoff
+    const int* bounds = sm.bounds();
     for (int g = 0; g < nb; ++g) {
       const int n = bounds[g];
       const unsigned self = (t0 + g == self_tile) ? self_bit : 0u;
@@ -418,6 +525,58 @@ __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
   }
 }
 
+// The pack step of a batch (walk below): each tile's kept candidates,
+// compacted in walk order; the self pair's packed bit. With Framed, a tile
+// of a wrapped mirrored entry (bit s of `framed`) is staged unshifted and
+// pruned against the own rows' box moved by -shift; its axes go into
+// `frames` (3 bits a tile) and its shifts into sh. With Rows, each kept
+// candidate's row beside its record (a reaction policy's landing).
+template <bool Framed, bool Rows, typename T, typename G>
+__device__ __forceinline__ void pack_batch(
+    const G& geo, const typename G::Entry& mine, const Box<T>& box,
+    unsigned framed, int t0, int nb, int self_tile, T near_cutsq, T* raw,
+    const SmemOf<T, G>& sm, unsigned* self_bit, unsigned* frames,
+    T (&sh)[3]) {
+  const int lane = threadIdx.x;
+  int* bounds = sm.bounds();
+  int s = t0 / geo.tiles, k = t0 - s * geo.tiles;
+  for (int g = 0; g < nb; ++g) {
+    typename G::Entry e = geo.fetch(mine, s);
+    bool moved = false;
+    T t[3] = {T(0), T(0), T(0)};
+    if constexpr (Framed) {
+      if (framed >> s & 1u) {  // warp-uniform: staged unshifted
+        moved = true;
+        t[0] = e.shx, t[1] = e.shy, t[2] = e.shz;
+        unsigned bits = 0;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          if (t[a] != T(0)) {
+            bits |= 1u << a;
+            sh[a] = t[a];
+          }
+        }
+        *frames |= bits << (3 * g);
+        e.shx = e.shy = e.shz = T(0);
+      }
+    }
+    Cand<T> c;
+    const bool keep =
+        geo.pack(e, k, lane, raw + g * G::kPlanes * kTile, &c) &&
+        (moved ? near_moved_box(box, t, c, near_cutsq)
+               : geo.near(box, c, near_cutsq));
+    const unsigned kept = __ballot_sync(0xffffffffu, keep);
+    const int pos = __popc(kept & ((1u << lane) - 1u));
+    if (keep) sm.put(g * kTile + pos, c);
+    if constexpr (Rows) {
+      if (keep) sm.rows()[g * kTile + pos] = geo.row(e, k, lane);
+    }
+    if (t0 + g == self_tile) *self_bit = 1u << pos;
+    if (lane == 0) bounds[g] = __popc(kept);
+    if (++k == geo.tiles) k = 0, ++s;
+  }
+}
+
 template <typename T, typename G, typename B, typename R = NoReactions>
 __device__ __forceinline__ void walk(const G& geo, const B& body,
                                      const Cand<T>& own, bool live,
@@ -426,40 +585,61 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
                                      T (&acc)[B::kAcc],
                                      const R& react = R{}) {
   constexpr int kB = SmemOf<T, G>::kTiles;
+  constexpr bool kFrames = HalfFrames<G>::value;
+  static_assert(!kFrames || (G::kTwoPass && !R::kOn && 3 * kB <= 32),
+                "frames decide in pass 1 and leave pass 2 plain; 3 frame "
+                "bits a tile in a word");
   const int lane = threadIdx.x;
   const int ntiles = G::kEntries * geo.tiles;
   T* raw = sm.raw();
-  int* bounds = sm.bounds();
   const typename G::Entry mine = geo.entry(min(lane, G::kEntries - 1));
   const Box<T> box = own_box(own, live);
+  // the wrapped mirrored entries (warp-uniform; bit s: entry s), decided
+  // in the Newton-half frame
+  unsigned framed = 0;
+  if constexpr (kFrames)
+    framed = __ballot_sync(0xffffffffu,
+                           lane < kMirrored &&
+                               (mine.shx != T(0) || mine.shy != T(0) ||
+                                mine.shz != T(0)));
   const T near_cutsq = cutsq * (T(1) + T(1.0 / 4096));
   issue_batch(geo, mine, 0, min(kB, ntiles), raw);
   for (int t0 = 0; t0 < ntiles; t0 += kB) {
     const int nb = min(kB, ntiles - t0);
     copy_wait_all();
     __syncwarp();  // every lane's copies have landed
-    // pack: the batch's kept candidates, compacted in walk order
-    unsigned self_bit = 0;
-    int s = t0 / geo.tiles, k = t0 - s * geo.tiles;
-    for (int g = 0; g < nb; ++g) {
-      const typename G::Entry e = geo.fetch(mine, s);
-      Cand<T> c;
-      const bool keep =
-          geo.pack(e, k, lane, raw + g * G::kPlanes * kTile, &c) &&
-          geo.near(box, c, near_cutsq);
-      const unsigned kept = __ballot_sync(0xffffffffu, keep);
-      const int pos = __popc(kept & ((1u << lane) - 1u));
-      if (keep) sm.put(g * kTile + pos, c);
-      if constexpr (R::kOn) {
-        if (keep) sm.rows()[g * kTile + pos] = geo.row(e, k, lane);
-      }
-      if (t0 + g == self_tile) self_bit = 1u << pos;
-      if (lane == 0) bounds[g] = __popc(kept);
-      if (++k == geo.tiles) k = 0, ++s;
+    // pack: the batch's kept candidates, compacted in walk order; a batch
+    // with a framed tile (kFrames only) runs its own copy of the loop, so
+    // the others pay nothing for frames
+    unsigned self_bit = 0, frames = 0;
+    T sh[3] = {T(0), T(0), T(0)};  // a framed batch's shift per axis
+    bool framed_batch = false;
+    if constexpr (kFrames) {
+      const int s0 = t0 / geo.tiles, s1 = (t0 + nb - 1) / geo.tiles;
+      framed_batch = framed >> s0 & ((2u << (s1 - s0)) - 1u);
     }
+    if (framed_batch)  // warp-uniform
+      pack_batch<kFrames, R::kOn>(geo, mine, box, framed, t0, nb, self_tile,
+                                  near_cutsq, raw, sm, &self_bit, &frames,
+                                  sh);
+    else
+      pack_batch<false, R::kOn>(geo, mine, box, framed, t0, nb, self_tile,
+                                near_cutsq, raw, sm, &self_bit, &frames, sh);
     __syncwarp();  // records written, raw planes read
     if (t0 + kB < ntiles)  // the next batch's copies fly meanwhile
       issue_batch(geo, mine, t0 + kB, min(kB, ntiles - t0 - kB), raw);
+    if constexpr (kFrames) {
+      if (frames != 0) {  // warp-uniform
+        if (live)
+          pass_masks<true>(geo, own, sh, frames, t0, nb, self_tile, self_bit,
+                           cutsq, sm);
+        __syncwarp();  // the unshifted records read
+        restage<T, G>(sh, frames, sm);  // by every lane
+        __syncwarp();
+        if (live) pass_pairs(geo, body, own, nb, sm, acc, react);
+        continue;
+      }
+    }
     if (!live) continue;
     batch_passes(geo, body, own, t0, nb, self_tile, self_bit, cutsq, sm, acc,
                  react);

@@ -19,7 +19,7 @@
 // not bytes (at the eam-32k grid the rho sweep's bound is 0.001 ms of
 // operations, the force sweep's 0.002). A pair inside the cutoff costs one
 // Clenshaw series of 29 terms in the rho sweep and two of 28 in the force
-// sweep, about 6-10x the lj body. The first design (cell_stencil.cuh's
+// sweep, about 6-10x the lj body. The first design (a
 // sweep: one thread per row walking all 27 * cc candidate slots, pads
 // included, the body inside the candidate loop) paid the body wherever any
 // lane of a warp was inside the cutoff: about 340 bodies per row where
@@ -169,7 +169,7 @@ __global__ void CELL_WALK_BOUNDS eam_cell_rho_kernel(
     const unsigned char* __restrict__ valid, T* __restrict__ rho,
     T* __restrict__ fp, int nx, int ny, int nz, int cc,
     const __grid_constant__ RhoParams<T> p) {
-  sorted_grid::walk_rows<T, 3>(
+  sorted_grid::walk_grid<sorted_grid::SortedGrid<T, 3>>(
       {gx, gy, gz, nullptr}, prd, nx, ny, nz, cc, p.cutsq, RhoBody<T>{&p},
       [&](int row, const T (&acc)[1]) {
         rho[row] = acc[0];
@@ -184,7 +184,7 @@ __global__ void CELL_WALK_BOUNDS eam_cell_force_kernel(
     const T* __restrict__ prd, T* __restrict__ fx, T* __restrict__ fy,
     T* __restrict__ fz, int nx, int ny, int nz, int cc,
     const __grid_constant__ ForceParams<T> p) {
-  sorted_grid::walk_rows<T, 4>(
+  sorted_grid::walk_grid<sorted_grid::SortedGrid<T, 4>>(
       {gx, gy, gz, gfp}, prd, nx, ny, nz, cc, p.cutsq, ForceBody<T>{&p},
       [=](int row, const T (&acc)[3]) {
         fx[row] = acc[0];

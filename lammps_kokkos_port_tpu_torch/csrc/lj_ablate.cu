@@ -20,20 +20,33 @@
 // rounded up to 128-lane tiles. The lane count is an argument (`lanes`),
 // so one kernel serves both scripts; every lane of the constant scratch is
 // a live candidate, so a kept row sums `lanes` equal terms.
-// Layout: the column grid [nx*ny, nz, cc] read as cells (cx*ny+cy)*nz+cz,
-// one block row per cell, one thread per row (cell_stencil.cuh's launch
-// shape).
+// Layout: the column grid [nx*ny, nz, cc] read as cells (cx*ny+cy)*nz+cz.
 //
 // asm_only stages all 14 blocks in shared memory (stage[14][4][cc] per
 // cell) before the barrier and reads block 0 after it: the stores feed
 // other threads' reads as far as the compiler can tell, so the 14 blocks'
 // global loads stay. The block loop is unrolled, so the kernel's SASS holds
 // 14 * 4 = 56 global loads (LDG) of the staging; chip_smoke.py counts them
-// with cuobjdump. Bound: memory (it does no arithmetic beyond the shifts).
-// pair_only keeps the TPU body's branch-free form: every one of the 14*cc
-// candidates goes through the reciprocal and the force terms, invalid ones
-// with r2 = 1 and a zero factor, as the TPU's vector lanes do. Bound: the
-// arithmetic of 14*cc candidates per row.
+// with cuobjdump. One block row per cell, one thread per row
+// (cell_stencil.cuh's launch shape). Bound: memory (it does no arithmetic
+// beyond the shifts).
+//
+// pair_only keeps the TPU body's branch-free form, which is what the
+// ablation measures: every row runs the reciprocal and the force terms for
+// every one of its `lanes` candidates, invalid ones with r2 = 1 and a zero
+// factor, as the TPU's vector lanes do; the scratch is filled at run time
+// from `fill`, so the compiler cannot fold it; r2 is formed with explicitly
+// rounded products and sums. Bound: the arithmetic of lanes candidates
+// per row. The first design (one thread per row, one chain of `lanes`
+// bodies, four scalar shared loads a candidate: 0.0483 ms at the 32k melt
+// in f32 on an H100, about 13 warps per SM) was bound by latency. Here
+// kSplit threads share a row, each with two independent chains (lanes
+// j = sub + 2k kSplit and j + kSplit), so 4 kSplit times the bodies are in
+// flight per row; the candidate is one packed (x, y, z, id) record, one
+// 16-byte broadcast load in f32; the partial sums meet by warp shuffles in
+// a fixed butterfly order (deterministic). kSplit was chosen by measurement
+// (prof/full_redesign.py on an H100: 4 threads a row against 8, 4% faster
+// in f64, within 2% in f32, where 8 gain 1-2% with the exact divide).
 
 #include "cell_stencil.cuh"
 
@@ -108,45 +121,82 @@ __device__ __forceinline__ T recip(T x) {
   }
 }
 
+constexpr int kSplit = 4;  // threads per row (a power of two <= 32)
+constexpr int kPairThreads = 256;  // threads per block
+
+// the scratch's record j: (x, y, z, id), one 16-byte load in f32
+__device__ __forceinline__ void record(const float* s, int j, float* c) {
+  const float4 v = reinterpret_cast<const float4*>(s)[j];
+  c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+}
+__device__ __forceinline__ void record(const double* s, int j, double* c) {
+  const double2 a = reinterpret_cast<const double2*>(s)[2 * j];
+  const double2 b = reinterpret_cast<const double2*>(s)[2 * j + 1];
+  c[0] = a.x, c[1] = a.y, c[2] = b.x, c[3] = b.y;
+}
+
+// the TPU body for candidate j of the scratch, added into acc
 template <typename T, bool Approx>
-__global__ void pair_only_kernel(const T* __restrict__ gx,
-                                 const T* __restrict__ gy,
-                                 const T* __restrict__ gz,
-                                 const T* __restrict__ gi, T* __restrict__ fx,
-                                 T* __restrict__ fy, T* __restrict__ fz,
-                                 int ncell, int cc, int nj, T fill, T lj1,
-                                 T lj2, T cutsq) {
+__device__ __forceinline__ void pair_term(const T* scratch, int j, T ox,
+                                          T oy, T oz, T oid, T lj1, T lj2,
+                                          T cutsq, T (&acc)[3]) {
+  T c[4];
+  record(scratch, j, c);
+  const T dx = ox - c[0];
+  const T dy = oy - c[1];
+  const T dz = oz - c[2];
+  const T r2 = Rn<T>::add(Rn<T>::add(Rn<T>::mul(dx, dx), Rn<T>::mul(dy, dy)),
+                          Rn<T>::mul(dz, dz));
+  const bool valid = oid < c[3] && oid >= T(0) && r2 < cutsq;
+  const T r2inv = recip<T, Approx>(valid ? r2 : T(1));
+  const T r6inv = r2inv * r2inv * r2inv;
+  const T fpair = valid ? r6inv * (lj1 * r6inv - lj2) * r2inv : T(0);
+  acc[0] += dx * fpair;
+  acc[1] += dy * fpair;
+  acc[2] += dz * fpair;
+}
+
+// kSplit threads per row (consecutive lanes of one warp), `rows` rows; the
+// scratch holds nj records
+template <typename T, bool Approx>
+__global__ void __launch_bounds__(kPairThreads) pair_only_kernel(
+    const T* __restrict__ gx, const T* __restrict__ gy,
+    const T* __restrict__ gz, const T* __restrict__ gi, T* __restrict__ fx,
+    T* __restrict__ fy, T* __restrict__ fz, int rows, int nj, T fill, T lj1,
+    T lj2, T cutsq) {
+  static_assert(32 % kSplit == 0, "a row's threads share one warp");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* scratch = reinterpret_cast<T*>(smem_raw);  // [4][nj lanes], all `fill`
-  const int nthreads = blockDim.x * blockDim.y;
-  for (int k = threadIdx.y * blockDim.x + threadIdx.x; k < 4 * nj;
-       k += nthreads)
-    scratch[k] = fill;
+  T* scratch = reinterpret_cast<T*>(smem_raw);  // [nj][4], all `fill`
+  for (int k = threadIdx.x; k < 4 * nj; k += blockDim.x) scratch[k] = fill;
   __syncthreads();
-  const int cell = blockIdx.x * blockDim.y + threadIdx.y;
-  const int lane = threadIdx.x;
-  if (cell >= ncell || lane >= cc) return;
-  const int row = cell * cc + lane;
-  const T ox = gx[row], oy = gy[row], oz = gz[row], oid = gi[row];
-  T ax = T(0), ay = T(0), az = T(0);
-  for (int j = 0; j < nj; ++j) {
-    const T dx = ox - scratch[j];
-    const T dy = oy - scratch[nj + j];
-    const T dz = oz - scratch[2 * nj + j];
-    const T r2 = Rn<T>::add(Rn<T>::add(Rn<T>::mul(dx, dx),
-                                       Rn<T>::mul(dy, dy)),
-                            Rn<T>::mul(dz, dz));
-    const bool valid = oid < scratch[3 * nj + j] && oid >= T(0) && r2 < cutsq;
-    const T r2inv = recip<T, Approx>(valid ? r2 : T(1));
-    const T r6inv = r2inv * r2inv * r2inv;
-    const T fpair = valid ? r6inv * (lj1 * r6inv - lj2) * r2inv : T(0);
-    ax += dx * fpair;
-    ay += dy * fpair;
-    az += dz * fpair;
+  const long t = long(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int row = static_cast<int>(t / kSplit), sub = threadIdx.x % kSplit;
+  const bool live = row < rows;
+  T a[3] = {T(0), T(0), T(0)}, b[3] = {T(0), T(0), T(0)};
+  if (live) {
+    const T ox = gx[row], oy = gy[row], oz = gz[row], oid = gi[row];
+    int j = sub;
+    for (; j + kSplit < nj; j += 2 * kSplit) {  // two independent chains
+      pair_term<T, Approx>(scratch, j, ox, oy, oz, oid, lj1, lj2, cutsq, a);
+      pair_term<T, Approx>(scratch, j + kSplit, ox, oy, oz, oid, lj1, lj2,
+                           cutsq, b);
+    }
+    if (j < nj)
+      pair_term<T, Approx>(scratch, j, ox, oy, oz, oid, lj1, lj2, cutsq, a);
   }
-  fx[row] = ax;
-  fy[row] = ay;
-  fz[row] = az;
+  // the row's partial sums, in one butterfly order on every thread
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a[c] += b[c];
+#pragma unroll
+    for (int off = kSplit / 2; off > 0; off >>= 1)
+      a[c] += __shfl_xor_sync(0xffffffffu, a[c], off);
+  }
+  if (live && sub == 0) {
+    fx[row] = a[0];
+    fy[row] = a[1];
+    fz[row] = a[2];
+  }
 }
 
 int set_smem(const void* kernel, size_t smem) {
@@ -179,18 +229,21 @@ int launch_pair(const void* gx, const void* gy, const void* gz,
                 const void* gi, void* fx, void* fy, void* fz, int ncell,
                 int cc, int lanes, double fill, double lj1, double lj2,
                 double cutsq, void* stream) {
-  const cell_stencil::Launch L = cell_stencil::launch_shape(ncell, cc);
+  const int rows = ncell * cc;
+  const long threads = long(rows) * kSplit;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kPairThreads - 1) / kPairThreads);
   const size_t smem = size_t(4) * lanes * sizeof(T);
   const int err = set_smem(
       reinterpret_cast<const void*>(&pair_only_kernel<T, Approx>), smem);
   if (err != 0) return err;
-  pair_only_kernel<T, Approx><<<L.grid, L.block, smem,
+  pair_only_kernel<T, Approx><<<blocks, kPairThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gx), static_cast<const T*>(gy),
       static_cast<const T*>(gz), static_cast<const T*>(gi),
-      static_cast<T*>(fx), static_cast<T*>(fy), static_cast<T*>(fz), ncell,
-      cc, lanes, static_cast<T>(fill), static_cast<T>(lj1),
-      static_cast<T>(lj2), static_cast<T>(cutsq));
+      static_cast<T*>(fx), static_cast<T*>(fy), static_cast<T*>(fz), rows,
+      lanes, static_cast<T>(fill), static_cast<T>(lj1), static_cast<T>(lj2),
+      static_cast<T>(cutsq));
   return static_cast<int>(cudaGetLastError());
 }
 

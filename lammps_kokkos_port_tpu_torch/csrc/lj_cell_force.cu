@@ -15,7 +15,7 @@
 //
 // What bounds it on this card: issue slots and latency, not bytes (the
 // bound of the 1M pass is 0.0116 ms of bytes). The first design
-// (cell_stencil.cuh's sweep, 1.236 ms at 1M f32 on an H100, about 26
+// (a sweep of every slot, 1.236 ms at 1M f32 on an H100, about 26
 // issue slots per warp and stencil candidate at 132 SMs x 4 schedulers x
 // 1.75 GHz) walked all 27 * cc candidates in every lane, pads included,
 // three 4-byte shared loads each, with the pair body inside the loop: with
@@ -39,13 +39,22 @@
 // explicitly rounded multiplies and adds (no fused multiply-add), as the
 // plain PyTorch version rounds it, so both make the same cutoff decisions;
 // only the order of the force sums differs.
+//
+// The frame (sorted_grid::FramedGrid): each pair is formed as the
+// Newton-half K1/K2 form it, once, from the cell whose half stencil holds
+// the other: across a wrapped face the row whose candidate sits at a
+// negative stencil offset moves itself by -shift and leaves the candidate
+// unshifted, so both rows of a pair at the cutoff take K1's one decision
+// (ROADMAP F12; tests/test_torch_cutoff_frame.py). The plain version forms
+// d alike (ops/pair_kernels.stencil, frame "half"). Only the batches of
+// cells at a face that hold such a tile pay for it (a fifth of the batches
+// at the 32k grid, 7% at 1M: PERF.md has the cost).
 
 #include "sorted_grid.cuh"
 
 namespace {
 
-using Geo32 = sorted_grid::SortedGrid<float, 3>;
-using Geo64 = sorted_grid::SortedGrid<double, 3>;
+template <typename T> using Geo = sorted_grid::FramedGrid<T, 3>;
 
 template <typename T>
 __global__ void CELL_WALK_BOUNDS lj_cell_force_kernel(
@@ -53,7 +62,7 @@ __global__ void CELL_WALK_BOUNDS lj_cell_force_kernel(
     const T* __restrict__ gz, const T* __restrict__ prd,
     T* __restrict__ fx, T* __restrict__ fy, T* __restrict__ fz,
     int nx, int ny, int nz, int cc, T lj1, T lj2, T cutsq) {
-  sorted_grid::walk_rows<T, 3>(
+  sorted_grid::walk_grid<Geo<T>>(
       {gx, gy, gz, nullptr}, prd, nx, ny, nz, cc, cutsq,
       cell_walk::LjBody<T>{lj1, lj2},
       [=](int row, const T (&acc)[3]) {
@@ -68,8 +77,7 @@ int launch(const void* gx, const void* gy, const void* gz, const void* prd,
            void* fx, void* fy, void* fz, int nx, int ny, int nz, int cc,
            double lj1, double lj2, double cutsq, void* stream) {
   const cell_walk::Launch L =
-      cell_walk::launch_shape<T, sorted_grid::SortedGrid<T, 3>>(
-          nx * ny * nz);
+      cell_walk::launch_shape<T, Geo<T>>(nx * ny * nz);
   lj_cell_force_kernel<T><<<L.grid, L.block, L.smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gx), static_cast<const T*>(gy),
@@ -105,5 +113,5 @@ extern "C" int lj_cell_force_f64(const void* gx, const void* gy,
 // The launch the kernel makes on `ncell` cells: out[0] blocks, out[1] x
 // out[2] threads per block, out[3] dynamic shared memory bytes.
 extern "C" int lj_cell_force_shape(int ncell, int f64, int* out) {
-  return cell_walk::report_shape<Geo32, Geo64>(ncell, f64, out);
+  return cell_walk::report_shape<Geo<float>, Geo<double>>(ncell, f64, out);
 }

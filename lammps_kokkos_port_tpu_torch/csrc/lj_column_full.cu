@@ -9,23 +9,9 @@
 // skipped when its id equals the own row's id (`own_i != ic`, :192), not
 // when it sits at the own lane. Any gi the JAX function takes gives its
 // result here: two rows with one id never pair, a row's periodic images
-// (same id) never pair with it, and pads (id -1, distinct far sentinels)
-// die by distance against real rows and by id against each other.
-//
-// Design: the stencil walk of cell_stencil.cuh with the id as channel 3
-// and the lane rule switched off. One thread per row, one block row per
-// cell; each of the 27 neighbour blocks is staged in shared memory with
-// its +-prd shift where the offset wraps (the per-column shifts and the z
-// roll seam of :146-176); one write per row, no atomics, deterministic.
-// Any grid of >= 1 cell per dim works, as in JAX: with fewer than 3 cells
-// the -1 and +1 neighbours are images of one cell, each with its shift.
-//
-// Cost: 27*cc candidates per row, like lj_cell_force.cu plus one shared
-// load and compare per candidate; bound by pair arithmetic on this card,
-// not by memory (each row reads 4 values and writes 3 from device memory).
-// r2 is formed with explicitly rounded products and sums, as the plain
-// twin forms it, so both make the same cutoff decisions; 1/r2 is an exact
-// IEEE divide (the JAX `_recip` is an exact divide off the TPU).
+// (same id) never pair with it, and pads (id -1) never pair with each other
+// and die by distance against real rows, unless a pad sits off its
+// sentinel, where K7 pairs it with the real rows in its cutoff.
 //
 // The same file carries P6 and P7 of benchmarks/prof/prof_kernel_v3.py
 // (make(kern) -> call :185-198, pallas_call :187; P7 :204-212 launches
@@ -34,17 +20,41 @@
 // a candidate is taken only when its id is >= 0 (:131-134, :168-171), so a
 // padding row never acts on a real one, wherever it sits:
 //   k1 (k1_kernel :109-142, the 27 blocks concatenated to [nz, 27 cc]) is
-//      the sweep above with CandLive = true;
+//      K7's pass with CandLive = true;
 //   k2 (k2_kernel :145-183, accumulated over the nine (dx, dy) columns,
 //      three dz blocks each) is a split candidate walk: one block per cell,
 //      one warp row (thread group) per (dx, dy) column, which stages and
 //      walks that column's three blocks for every row of the cell; the nine
 //      partial sums meet in shared memory and are added in group order, as
-//      k2 adds them. Nine times the threads of k1 per cell, a ninth of the
-//      candidates per thread: more rows in flight at the 32k grid, where the
-//      sweep is bound by latency (PERF.md). Same forces as k1 to rounding.
+//      k2 adds them. Nine times the threads of a one-thread-per-row sweep,
+//      a ninth of the candidates per thread. It keeps that first design.
+//
+// What bounds K7 and k1 on this card: issue slots and latency, not bytes
+// (each row reads 4 values and writes 3). The first design (a
+// sweep: one thread per row walking all 27 * cc candidate slots, pads
+// included, the pair body inside the loop; 0.0910 ms at the 32k melt in
+// f32 on an H100, 2.5x lj_cell_force on the same planes) is replaced by the
+// candidate walk of cell_walk.cuh over sorted_grid::IdGrid: K7's column
+// layout [nx*ny, nz, cc] is the sorted cell-major layout, so K7 is the walk
+// of lj_cell_force.cu over packed (x, y, z, id) records with the pair rule
+// own_id != cand_id in place of the lane rule (self_tile -1). One warp per
+// cell, only live candidates within the cutoff of the warp's rows' box
+// staged (k1 drops candidates with id < 0 there), r2 masks in pass 1, the
+// body over each lane's own list in pass 2. Each row is written once by
+// its lane: no reductions, bit-repeatable from run to run.
+//
+// Any grid of >= 1 cell per dim works, as in JAX: with fewer than 3 cells
+// the -1 and +1 neighbours are images of one cell, each entry staged with
+// its own shift and pruned in its own frame, and at nx = 1 a row's 26
+// images carry its id and drop out by the id rule. Pads at their sentinel
+// are skipped by position where sorted_grid.cuh's premise holds (on such
+// small grids it does not, and every row and candidate is walked). The
+// candidate is shifted by +-prd as JAX K7 shifts it, and r2 is formed with
+// explicitly rounded products and sums, as the plain twins form it, so
+// kernel and twin make the same cutoff decisions; 1/r2 is an exact IEEE
+// divide (the JAX `_recip` is an exact divide off the TPU).
 
-#include "cell_stencil.cuh"
+#include "sorted_grid.cuh"
 
 namespace {
 
@@ -54,32 +64,23 @@ using cell_stencil::wrap_dim;
 constexpr int kGroups = 9;  // the (dx, dy) columns of the 27-cell stencil
 
 template <typename T, bool CandLive>
-__global__ void lj_column_full_kernel(
+using Geo = sorted_grid::IdGrid<T, CandLive>;
+
+template <typename T, bool CandLive>
+__global__ void CELL_WALK_BOUNDS lj_column_full_kernel(
     const T* __restrict__ gx, const T* __restrict__ gy,
     const T* __restrict__ gz, const T* __restrict__ gi,
     const T* __restrict__ prd, T* __restrict__ fx, T* __restrict__ fy,
     T* __restrict__ fz, int nx, int ny, int nz, int cc, T lj1, T lj2,
     T cutsq) {
-  T own[4] = {};  // filled by the sweep before any pair call
-  T ax = T(0), ay = T(0), az = T(0);
-  const cell_stencil::Row me = cell_stencil::sweep<T, 4, false>(
-      {{gx, gy, gz, gi}}, prd, nx, ny, nz, cc, cutsq, own,
-      [&ax, &ay, &az, &own, cc, lj1, lj2](T dx, T dy, T dz, T r2,
-                                          const T* stage, int j) {
-        if (stage[3 * cc + j] == own[3]) return;  // K7's rule: by id
-        if (CandLive && stage[3 * cc + j] < T(0)) return;  // P6: ci >= 0
-        const T r2inv = T(1) / r2;
-        const T r6inv = r2inv * r2inv * r2inv;
-        const T fpair = r6inv * (lj1 * r6inv - lj2) * r2inv;
-        ax += dx * fpair;
-        ay += dy * fpair;
-        az += dz * fpair;
+  sorted_grid::walk_grid<Geo<T, CandLive>>(
+      {gx, gy, gz, gi}, prd, nx, ny, nz, cc, cutsq,
+      cell_walk::LjBody<T>{lj1, lj2},
+      [=](int row, const T (&acc)[3]) {
+        fx[row] = acc[0];
+        fy[row] = acc[1];
+        fz[row] = acc[2];
       });
-  if (me.row_live) {
-    fx[me.row] = ax;
-    fy[me.row] = ay;
-    fz[me.row] = az;
-  }
 }
 
 // P6 k2: blockDim = (lanes, 9), one block per cell. Group g = threadIdx.y
@@ -184,11 +185,12 @@ int launch(int variant, const void* gx, const void* gy, const void* gz,
         static_cast<T>(lj2), static_cast<T>(cutsq));
     return static_cast<int>(cudaGetLastError());
   }
-  const cell_stencil::Launch L = cell_stencil::launch_shape(nx * ny * nz, cc);
-  const size_t smem = size_t(4) * L.block.y * cc * sizeof(T);
+  const cell_walk::Launch L =
+      variant == 1 ? cell_walk::launch_shape<T, Geo<T, true>>(nx * ny * nz)
+                   : cell_walk::launch_shape<T, Geo<T, false>>(nx * ny * nz);
   auto kernel = variant == 1 ? lj_column_full_kernel<T, true>
                              : lj_column_full_kernel<T, false>;
-  kernel<<<L.grid, L.block, smem, st>>>(
+  kernel<<<L.grid, L.block, L.smem, st>>>(
       static_cast<const T*>(gx), static_cast<const T*>(gy),
       static_cast<const T*>(gz), static_cast<const T*>(gi),
       static_cast<const T*>(prd), static_cast<T*>(fx), static_cast<T*>(fy),
@@ -216,3 +218,11 @@ LJ_COLUMN_FULL_ENTRY(lj_column_v3_k1_f32, float, 1)
 LJ_COLUMN_FULL_ENTRY(lj_column_v3_k1_f64, double, 1)
 LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f32, float, 2)
 LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f64, double, 2)
+
+// The launch K7 (and k1: the same shape) makes on `ncell` cells: out[0]
+// blocks, out[1] x out[2] threads per block, out[3] dynamic shared memory
+// bytes.
+extern "C" int lj_column_full_shape(int ncell, int f64, int* out) {
+  return cell_walk::report_shape<Geo<float, false>, Geo<double, false>>(
+      ncell, f64, out);
+}

@@ -1,6 +1,7 @@
 // The sorted cell-major layout as the cell_walk.cuh kernels read it
-// (sm_90a): lj_cell_force.cu (K1-K3's port), eam_cell.cu (K4/K5's) and,
-// over the half stencil (HalfGrid), lj_plane_half.cu (K8/P10's) and
+// (sm_90a): lj_cell_force.cu (K1-K3's port, FramedGrid), eam_cell.cu
+// (K4/K5's), lj_column_full.cu (K7's and P6 k1's, IdGrid) and, over the
+// half stencil (HalfGrid), lj_plane_half.cu (K8/P10's) and
 // lj_column_half.cu (P2, P3, P5, P8 and P11, whose ColumnGrid is a sibling
 // of HalfGrid).
 //
@@ -9,8 +10,11 @@
 // SortedGrid: the full 27-cell stencil with no Newton halving: one warp
 // per cell walks its 27 neighbour blocks, positions shifted by +-prd where
 // the offset wraps across the box (no minimum image), and each lane writes
-// its row's sum once: deterministic, no atomics. HalfGrid: the 14 blocks
-// of the half stencil, shifted alike, each pair once.
+// its row's sum once: deterministic, no atomics. FramedGrid: the same walk
+// with each pair formed in the frame of the Newton-half kernels (below).
+// IdGrid: the same walk over packed (x, y, z, id) records with K7's id
+// rule. HalfGrid: the 14 blocks of the half stencil, shifted alike, each
+// pair once.
 //
 // The premise below holds for HalfGrid too: its frames are some of the
 // full stencil's.
@@ -155,7 +159,49 @@ template <typename T, int P> struct SortedGrid {
   }
 
   // the self pair is masked by its packed position in the own tile
+  static constexpr bool kSelfByLane = true;
   __device__ bool other(const Cand<T>&, const Cand<T>&) const { return true; }
+};
+
+// SortedGrid with every pair formed in the frame in which the Newton-half
+// kernels form it (JAX K1/K2, lammps_kokkos_port_tpu/ops/pallas_pair.py
+// :215-315: the pair once, from the cell whose half stencil holds the
+// other, its candidate shifted). Entry s < 13 of the 27 (first nonzero
+// offset negative) is the mirror of a half-stencil entry of the candidate's
+// cell, so there the half stencil shifts the own row by -shift: the record
+// is staged unshifted and the walk moves the own row (cell_walk.cuh,
+// HalfFrames) to decide the pair. d = (own - shift) - cand is then exactly
+// minus the half stencil's d, so both rows of a pair take its one cutoff
+// decision; with the candidate shifted on both sides, two rounded frames
+// could decide the two rows apart (ROADMAP F12). A cell's wrapped mirrored
+// entries shift each axis by one value (-prd at the low face, +prd at the
+// high face: never both where the grid has >= 2 cells per dim, and the
+// wrappers ask for 3), so a batch keeps one shift per axis.
+template <typename T, int P> struct FramedGrid : SortedGrid<T, P> {
+  static constexpr bool kHalfFrames = true;
+};
+
+// K7's geometry (lj_column_full.cu): SortedGrid over packed (x, y, z, id)
+// records, the float ids of the column layout taken as they are (-1 for a
+// pad). The pair rule is K7's own_id != cand_id
+// (lammps_kokkos_port_tpu/ops/pallas_pair.py:192): it masks the self pair
+// and every periodic image of the own row (self_tile -1), which at nx = 1
+// are 26 candidates. With CandLive (P6 k1) a candidate with id < 0 is
+// dropped when it is packed (benchmarks/prof/prof_kernel_v3.py:131-134).
+// Candidates are shifted by +-prd as JAX K7 shifts them (no frames).
+template <typename T, bool CandLive> struct IdGrid : SortedGrid<T, 4> {
+  using Base = SortedGrid<T, 4>;
+  static constexpr bool kSelfByLane = false;
+
+  __device__ bool pack(const typename Base::Entry& e, int k, int lane,
+                       const T* raw, Cand<T>* c) const {
+    const bool live = Base::pack(e, k, lane, raw, c);
+    return CandLive ? live && c->w >= T(0) : live;
+  }
+
+  __device__ bool other(const Cand<T>& o, const Cand<T>& c) const {
+    return o.w != c.w;
+  }
 };
 
 // The half stencil's geometry on the same layout, for the Newton-half
@@ -224,16 +270,17 @@ template <typename T, bool React> struct HalfGrid : SortedGrid<T, 4> {
 };
 
 // The body of a sorted-layout kernel: this warp's cell, its row passes
-// (32 rows each) through the walk with `body`, and store(row, acc) for
-// every row of the cell (a pad row skipped by position gets acc = 0).
-// Launched with cell_walk::launch_shape<T, SortedGrid<T, P>>(ncells).
-template <typename T, int P, typename B, typename Store>
-__device__ __forceinline__ void walk_rows(const Planes<T>& g,
+// (32 rows each) through the walk with `body` over the geometry `Geo`
+// (SortedGrid or a sibling with no members of its own), and store(row,
+// acc) for every row of the cell (a pad row skipped by position gets acc
+// = 0). Launched with cell_walk::launch_shape<T, Geo>(ncells).
+template <typename Geo, typename T, typename B, typename Store>
+__device__ __forceinline__ void walk_grid(const Planes<T>& g,
                                           const T* __restrict__ prd, int nx,
                                           int ny, int nz, int cc, T cutsq,
                                           const B& body, Store store) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using Geo = SortedGrid<T, P>;
+  constexpr int P = Geo::kPlanes;
   const int cell = blockIdx.x * cell_walk::kWarpsPerBlock + threadIdx.y;
   if (cell >= nx * ny * nz) return;  // the whole warp
   const auto sm = cell_walk::warp_smem<T, Geo>(smem_raw);
@@ -242,8 +289,9 @@ __device__ __forceinline__ void walk_rows(const Planes<T>& g,
   const int tiles = (cc + cell_walk::kTile - 1) / cell_walk::kTile;
   const T px = prd[0], py = prd[1], pz = prd[2];
   const bool skip_pads = pads_apart(px, py, pz, nx, ny, nz, cc);
-  const Geo geo{g,  nx, ny, nz, cc, tiles, t / ny, t % ny, cz,
-                px, py, pz, skip_pads};
+  const SortedGrid<T, P> base{g,  nx, ny, nz, cc, tiles, t / ny, t % ny, cz,
+                              px, py, pz, skip_pads};
+  const Geo geo{base};
   const int lane = threadIdx.x;
 
   for (int rp = 0; rp < tiles; ++rp) {
@@ -256,8 +304,9 @@ __device__ __forceinline__ void walk_rows(const Planes<T>& g,
     }
     const bool live = j < cc && (!skip_pads || own.x < T(kPadPos / 2));
     T acc[B::kAcc] = {};
+    const int self_tile = Geo::kSelfByLane ? 13 * tiles + rp : -1;
     if (__any_sync(0xffffffffu, live))
-      cell_walk::walk(geo, body, own, live, 13 * tiles + rp, cutsq, sm, acc);
+      cell_walk::walk(geo, body, own, live, self_tile, cutsq, sm, acc);
     if (j < cc) store(row, acc);
   }
 }

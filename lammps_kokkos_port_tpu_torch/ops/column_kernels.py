@@ -14,7 +14,12 @@ ablation (`prof.sorted_ablate`, V1).
 `lj_column_force` is the entry point. CPU tensors go to the plain PyTorch
 version `lj_column_force_reference`; CUDA tensors go to the kernel in
 `csrc/lj_column_full.cu`, built with nvcc at first use (ops/cuda_build), or
-raise.
+raise. The kernel is the candidate walk of `lj_cell_force` over packed
+(x, y, z, id) records with K7's id rule (csrc/sorted_grid.cuh, IdGrid): it
+skips pads at their sentinel, so on a CUDA tensor it raises on a cutoff of
+PAD_STEP or more, as the other walk kernels do (`check_pad_cutoff`). Both
+shift the candidate across a wrapped face, as JAX K7 does (no frames:
+ops/pair_kernels.stencil, frame "candidate").
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import functools
 import torch
 
 from . import cuda_build
-from .pair_kernels import check_grid, check_launch, stencil
+from .pair_kernels import (check_grid, check_launch, check_pad_cutoff,
+                           stencil, walk_launch)
 
 SOURCE = cuda_build.CSRC / "lj_column_full.cu"
 
@@ -72,7 +78,16 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 8 + [i32] * 4 + [f64] * 3 + [ptr]
         fn.restype = i32
+    lib.lj_column_full_shape.argtypes = [i32, i32, ptr]
+    lib.lj_column_full_shape.restype = i32
     return lib
+
+
+def launch_shape(ncells, dtype) -> dict:
+    """The launch K7 (and P6 k1) makes on the grid `ncells` in `dtype`
+    (builds the library)."""
+    nx, ny, nz = ncells
+    return walk_launch(_library(), "lj_column_full", nx * ny * nz, dtype)
 
 
 def lj_column_force(key, ncells, gx, gy, gz, gi, prd):
@@ -92,6 +107,7 @@ def lj_column_force(key, ncells, gx, gy, gz, gi, prd):
     check_launch(fl, prd)
     ncell, cc = fl[0].shape
     _, lj1, lj2, cutsq = key
+    check_pad_cutoff(cutsq)
     out = torch.empty((3,) + tuple(gx.shape), dtype=gx.dtype,
                       device=gx.device)
     fn = (_library().lj_column_full_f32 if gx.dtype == torch.float32

@@ -13,6 +13,10 @@ use into `_build/` and bound with ctypes (ops/cuda_build). There is no
 fallback from a CUDA tensor to the plain version: the wrapper launches the
 kernel or raises.
 
+Each pair is formed in the frame of the Newton-half K1/K2 (`stencil`,
+frame "half"): across a wrapped face both rows of a pair at the cutoff
+take K1's one decision (tests/test_torch_cutoff_frame.py).
+
 The kernel skips pad rows (their position sentinel, ops/sortedforce.py)
 instead of walking them, which gives the plain version's result only while
 no pad lies within the cutoff of another row: on a CUDA tensor
@@ -78,16 +82,31 @@ def check_launch(channels, prd):
         raise ValueError(f"cell_cap {g0.shape[1]} > {MAX_CELL_CAP}")
 
 
-def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS):
+def mirrored(off) -> bool:
+    """Whether a stencil offset's first nonzero component is negative: the
+    mirror of an entry of the Newton-half stencil (the own cell and the 13
+    lexicographically positive offsets, JAX `_HALF`)."""
+    return next((o for o in off if o), 0) < 0
+
+
+def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS,
+            frame="candidate"):
     """The stencil walk of the plain twins, over the 27 neighbour offsets
     or the given `offsets`. For each offset the grid is rolled so that
     cell c faces cell c+offset; cells whose neighbour wraps across the box
-    get an explicit +-prd shift on the candidate coordinates (no minimum
-    image). Yields (d, r2, pair_ok, cand) per offset: d = [dx, dy, dz] own
-    minus candidate, each [nx, ny, nz, cc, cc]; r2 = dx*dx + dy*dy + dz*dz
-    (each product and sum rounded, as the kernels round it); pair_ok masks
-    the self pair (lane index in the own cell); cand = the `extra`
-    channels rolled alike, [nx, ny, nz, cc]."""
+    get an explicit +-prd shift (no minimum image). Yields (d, r2, pair_ok,
+    cand) per offset: d = [dx, dy, dz] own minus candidate, each [nx, ny,
+    nz, cc, cc]; r2 = dx*dx + dy*dy + dz*dz (each product and sum rounded,
+    as the kernels round it); pair_ok masks the self pair (lane index in the
+    own cell); cand = the `extra` channels rolled alike, [nx, ny, nz, cc].
+
+    `frame` "candidate": d = own - (cand + shift) at every offset, as the
+    full-stencil kernels K3 and K7 form it. "half": at a `mirrored` offset
+    d = (own - shift) - cand, exactly minus the d that the Newton-half
+    kernels K1/K2 form once for the pair from the other cell, so both rows
+    take K1's cutoff decision (csrc/sorted_grid.cuh, FramedGrid)."""
+    if frame not in ("candidate", "half"):
+        raise ValueError(f"frame must be 'candidate' or 'half', got {frame!r}")
     nx, ny, nz = ncells
     cc = gx.shape[-1]
     dev = gx.device
@@ -96,6 +115,7 @@ def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS):
     not_self = lane[:, None] != lane[None, :]
     for off in offsets:
         shifts = (-off[0], -off[1], -off[2])
+        moved = frame == "half" and mirrored(off)
         d = []
         for dim, n in enumerate(ncells):
             cand = torch.roll(own[dim], shifts=shifts, dims=(0, 1, 2))
@@ -104,8 +124,12 @@ def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS):
                                 torch.where(w >= n, prd[dim], 0.0))
             view = [1, 1, 1, 1]
             view[dim] = n
-            cand = cand + shift.reshape(view)
-            d.append(own[dim][..., :, None] - cand[..., None, :])
+            if moved:
+                d.append((own[dim] - shift.reshape(view))[..., :, None]
+                         - cand[..., None, :])
+            else:
+                cand = cand + shift.reshape(view)
+                d.append(own[dim][..., :, None] - cand[..., None, :])
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]  # [nx,ny,nz,cc,cc]
         pair_ok = not_self if off == (0, 0, 0) else None
         cand = [torch.roll(a.reshape(nx, ny, nz, cc), shifts=shifts,
@@ -115,11 +139,11 @@ def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS):
 
 def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
     """Plain PyTorch lj/cut force-only pass over the cell-major grid (the
-    27-cell `stencil` walk). Returns [3, ncells, cc] (fx, fy, fz stacked on
-    the leading axis)."""
+    27-cell `stencil` walk, each pair in K1's frame). Returns [3, ncells,
+    cc] (fx, fy, fz stacked on the leading axis)."""
     _, lj1, lj2, cutsq = key
     out = [torch.zeros_like(a) for a in (gx, gy, gz)]
-    for d, r2, pair_ok, _ in stencil(ncells, gx, gy, gz, prd):
+    for d, r2, pair_ok, _ in stencil(ncells, gx, gy, gz, prd, frame="half"):
         valid = r2 < cutsq
         if pair_ok is not None:
             valid = valid & pair_ok

@@ -7,9 +7,11 @@ directory holding an earlier tree's `lj_column_half.cu` and the headers it
 includes; it is built beside this tree's (ops/cuda_build, one nvcc each,
 all started together) and launched through its own C entry point (pass
 number, warp rows, fold flag, three force planes and the reaction buffer
-its fold reads), at its default launch. The other designs (VARIANTS
-below) are this tree's source with one line replaced, each built in a
-temporary directory and launched through `column_half_kernels.launch`:
+its fold reads), at its default launch; a parent on the walk (whose
+source has this tree's `ColumnGrid`: `on_walk`) through this tree's entry
+points. The other designs (VARIANTS below) are this tree's source with
+one line replaced, each built in a temporary directory and launched
+through `column_half_kernels.launch`:
 "target_planes" lands the folded target passes' reactions in three planes
 (one reduction per component) in place of f32's four-wide reduction into
 interleaved blocks; "batch9" stages 9 tiles a batch in place of 7. Each
@@ -135,10 +137,18 @@ def _parent_call(lib, name, sp):
     return run
 
 
-def calls(sp, parent, libs: dict, at_1m: bool) -> dict:
+def on_walk(source: Path) -> bool:
+    """Whether a tree's lj_column_half.cu has this tree's entry points (the
+    walk's `ColumnGrid`)."""
+    return "struct ColumnGrid" in source.read_text()
+
+
+def calls(sp, parent, libs: dict, at_1m: bool,
+          parent_walks: bool = False) -> dict:
     """The contenders on the planes `sp`: {label: (call, its plain
     twin's result)}; every call returns three force planes (and rc for
-    writeonce)."""
+    writeonce). A parent on the walk (`parent_walks`) is launched through
+    this tree's entry points, as the designs are."""
     args = (sp.key, sp.ncells, sp.cap, *sp.col, sp.prd)
     plane = (sp.key, sp.ncells, sp.cap, *sp.plane, sp.prd)
     full = (sp.key, sp.ncells, *sp.flat[:3], sp.prd)
@@ -147,7 +157,12 @@ def calls(sp, parent, libs: dict, at_1m: bool) -> dict:
     out = {}
     for name in names:
         ref = chk.reference(name, *args)
-        out[f"{name} parent"] = (_parent_call(parent, name, sp), ref)
+        if parent_walks:
+            out[f"{name} parent"] = (
+                lambda n=name: chk.launch(n, sp.key, sp.ncells, sp.cap,
+                                          sp.flat, sp.prd, lib=parent), ref)
+        else:
+            out[f"{name} parent"] = (_parent_call(parent, name, sp), ref)
         out[f"{name} new"] = (lambda n=name: chk.PASSES[n](*args), ref)
         for var, lib in libs.items():
             if f32 and name in VARIANTS[var][2]:
@@ -193,10 +208,10 @@ def check_pass(label: str, got, ref, dtype, scale: float) -> float:
 
 
 def measure(tag: str, sp, parent, libs: dict, rounds: int, inner: int,
-            at_1m: bool = False) -> dict:
+            at_1m: bool = False, parent_walks: bool = False) -> dict:
     """Check and time every contender on `sp`; say and return the line."""
     dt = sp.buf.dtype
-    contenders = calls(sp, parent, libs, at_1m)
+    contenders = calls(sp, parent, libs, at_1m, parent_walks)
     fwd = chk.reference("iso_noreverse", sp.key, sp.ncells, sp.cap,
                         *sp.col, sp.prd)
     scale = max(a.abs().max().item() for a in fwd)
@@ -236,7 +251,9 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
                    for name, (old, new, _) in VARIANTS.items()}
         cuda_build.build(chk.SOURCE, old_src, *var_src.values(), hk.SOURCE,
                          pair_kernels.SOURCE)
-        old = parent_library(old_src, PARENT_ARGTYPES)
+        walks = on_walk(old_src)
+        old = (chk.bind(cuda_build.load(old_src)) if walks
+               else parent_library(old_src, PARENT_ARGTYPES))
         libs = {name: chk.bind(cuda_build.load(src))
                 for name, src in var_src.items()}
         # each build's own log (the sources share one file name)
@@ -257,10 +274,11 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
             sfx = "f32" if dtype == torch.float32 else "f64"
             results[f"32k setup {sfx}"] = measure(
                 f"32k setup {sfx}", sorted_planes(sim, dtype=dtype), old,
-                libs, rounds, inner)
+                libs, rounds, inner, parent_walks=walks)
             results[f"32k {sfx}"] = measure(
                 f"32k {sfx}", sorted_planes(sim, jittered(sim, dtype, JITTER),
-                                            dtype), old, libs, rounds, inner)
+                                            dtype), old, libs, rounds, inner,
+                parent_walks=walks)
         del sim
         sim = lj_melt_sim(cells=63, t_init=1.44, seed=SEED,
                           dtype=torch.float32, device=dev)
@@ -268,7 +286,7 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
         results["1M f32"] = measure(
             "1M f32", sorted_planes(sim, jittered(sim, torch.float32,
                                                   JITTER), torch.float32),
-            old, libs, rounds, inner, at_1m=True)
+            old, libs, rounds, inner, at_1m=True, parent_walks=walks)
         del sim
         torch.cuda.empty_cache()
     if out:

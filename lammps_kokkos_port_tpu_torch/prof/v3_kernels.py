@@ -9,7 +9,9 @@ layout `[nx*ny, nz, cc]`:
            forces, ops/column_kernels.lj_column_force) with one more test,
            a candidate is taken only when its float id is >= 0
            (:131-134), so a padding row never acts on a real row wherever
-           it sits; exact reciprocal, one write per own row. P7 (:204-212)
+           it sits; exact reciprocal, one write per own row. On the card
+           K7's candidate walk with such candidates dropped when staged
+           (csrc/sorted_grid.cuh, IdGrid<T, true>). P7 (:204-212)
            launches k1_kernel once more for its parity line against the
            shipped kernel: the same instance, another caller;
   `v3_k2`  k2_kernel (:145-183): the same forces accumulated over the nine
@@ -33,7 +35,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops.column_kernels import column_channels
-from ..ops.pair_kernels import check_launch, stencil
+from ..ops.pair_kernels import check_launch, check_pad_cutoff, stencil
 
 SOURCE = cuda_build.CSRC / "lj_column_full.cu"
 MAX_CELL_CAP_K2 = 96  # k2: nine warp rows of cc rounded to a warp <= 1024
@@ -92,6 +94,8 @@ def _wrapper(name, grouped, doc):
         if grouped and cc > MAX_CELL_CAP_K2:
             raise ValueError(f"{name}: cell_cap {cc} > {MAX_CELL_CAP_K2}")
         _, lj1, lj2, cutsq = key
+        if not grouped:  # k1 walks with the pad skip of the sorted layout
+            check_pad_cutoff(cutsq)
         out = torch.empty((3,) + tuple(gx.shape), dtype=gx.dtype,
                           device=gx.device)
         suffix = "f32" if gx.dtype == torch.float32 else "f64"

@@ -90,3 +90,13 @@ def test_parent_passes_cover_every_pass():
     """The earlier tree's pass numbers and buffers name every pass."""
     assert set(column_redesign.PARENT_PASSES) == set(chk.SPECS)
 
+
+
+def test_parent_on_the_walk_is_recognised(tmp_path):
+    """This tree's source has the walk's entry points; a first-design
+    source (no ColumnGrid) is launched through its own."""
+    assert column_redesign.on_walk(chk.SOURCE)
+    old = tmp_path / chk.SOURCE.name
+    old.write_text(chk.SOURCE.read_text().replace("struct ColumnGrid",
+                                                  "struct OtherGrid"))
+    assert not column_redesign.on_walk(old)

@@ -11,7 +11,9 @@ not use.) Tolerances: f64 rtol 1e-10; f32 rtol 1e-4 with atol 1e-4*max|f|.
 The kernel and the plain version make the same cutoff decisions (r2 is
 computed without fused multiply-adds in both); only the order of the force
 sums differs. The planted pairs at r2 = cutsq and one ulp either side of it
-show the decisions are the same bit for bit.
+show the decisions are the same bit for bit, and those planted across each
+wrapped face (prof/planted.wrapped_pairs) that both rows of a pair take
+the Newton-half K1's one decision (ROADMAP F12).
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ from lammps_kokkos_port_tpu_torch.ops.sortedforce import (
     _pad_x,
 )
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
+from lammps_kokkos_port_tpu_torch.prof import planted
 
 pytestmark = pytest.mark.cuda
 
@@ -60,31 +63,9 @@ def _launch_and_check(key, ncells, g, prd, dtype):
     return f, ref
 
 
-def _lattice_grid(ncells, cc, counts, seed, dtype, device, side=3.0):
-    """A cell-major grid of `ncells` cells of edge `side` and `cc` rows:
-    cell c holds counts[c] atoms on a jittered sub-lattice inside the cell
-    (no two closer than about 0.5), at lanes drawn at random, so pads (the
-    layout's sentinels) are interleaved with live rows. Returns (g [3,
-    ncell, cc], prd, valid [ncell, cc])."""
-    rng = np.random.default_rng(seed)
-    nx, ny, nz = ncells
-    ncell = nx * ny * nz
-    g = _pad_x(ncell * cc, torch.float64, "cpu").numpy()
-    g = np.repeat(g[None], 3, axis=0).reshape(3, ncell, cc)
-    valid = np.zeros((ncell, cc), dtype=bool)
-    for c in range(ncell):
-        cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
-        m = int(np.ceil(counts[c] ** (1 / 3) - 1e-9))
-        sub = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
-                       -1).reshape(-1, 3)[:counts[c]]
-        pos = (np.array([cx, cy, cz]) + (sub + 0.5) / m) * side
-        pos += rng.uniform(-0.05, 0.05, pos.shape)
-        lanes = rng.choice(cc, counts[c], replace=False)
-        g[:, c, lanes] = pos.T
-        valid[c, lanes] = True
-    prd = torch.tensor([nx * side, ny * side, nz * side], dtype=dtype)
-    return (torch.from_numpy(g).to(dtype).to(device), prd.to(device),
-            torch.from_numpy(valid).to(device))
+# jittered atoms at random lanes among pads: (g [3, ncell, cc], prd,
+# valid [ncell, cc])
+_lattice_grid = planted.lattice_grid
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -243,3 +224,21 @@ def test_launch_shape(cuda):
         assert big["threads"] == (32, 4)
         assert big["blocks"] == -(-37 ** 3 // 4)
         assert 0 < big["smem_bytes"] <= 48 * 1024
+
+
+@pytest.mark.parametrize("case", planted.CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cutoff_frame_across_wrapped_faces(cuda, dtype, case):
+    """A pair planted across each periodic face at K1's r2 = cutsq and one
+    ulp either side (prof/planted.wrapped_pairs, (3, 3, 3) x cc 32): the
+    kernel takes on both rows of each pair the decision of the plain
+    version, which is K1's (tests/test_torch_cutoff_frame.py)."""
+    ncells, cc = (3, 3, 3), 32
+    prd = torch.full((3,), 10.2, dtype=dtype)
+    g, _, rows, dec = planted.wrapped_pairs(ncells, cc, prd, KEY[3], dtype,
+                                            case, device=cuda)
+    f, ref = _launch_and_check(KEY, ncells, g, prd.to(cuda), dtype)
+    want = {axis: d["half"] for axis, d in dec.items()}
+    assert planted.taken(ref, rows) == want
+    assert planted.taken(f, rows) == want
+    assert int(f.count_nonzero()) == int(ref.count_nonzero())

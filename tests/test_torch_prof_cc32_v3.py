@@ -509,6 +509,11 @@ def test_entry_points_print_every_label(capsys):
                       delay=0, check=False, device="cpu")
     sim.setup()
     for mod, labels in ((kernel_cc32, CC32_LABELS), (kernel_v3, V3_LABELS)):
+        if mod is kernel_v3:
+            # off the lattice, where the forces stand above their rounding:
+            # at setup they are zeros to 5e-14, which k1 (K7's frame) and
+            # the shipped kernel (K1's frame, ROADMAP F12) round apart
+            sim.run(10)
         res = mod.main(device="cpu", k1=1, k2=2, sim=sim)
         lines = capsys.readouterr().out.splitlines()
         assert lines[0].startswith("device: cpu")

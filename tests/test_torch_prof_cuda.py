@@ -1,7 +1,9 @@
 """PyTorch port, the CUDA kernels of the profiling paths against their
-plain twins: K7, P6 and P7 (csrc/lj_column_full.cu), K8 and P10
-(csrc/lj_plane_half.cu), P9 and P4 (csrc/lj_ablate.cu), the Newton-half
-column passes P2, P3, P5, P8 and P11 (csrc/lj_column_half.cu), P1
+plain twins: K7, P6 and P7 (csrc/lj_column_full.cu: K7 and k1 on the
+shared walk, on any grid, pairs at the cutoff across a wrapped face,
+bit-repeatable), K8 and P10 (csrc/lj_plane_half.cu), P9 and P4
+(csrc/lj_ablate.cu: any lane count, and a time that grows with the
+lanes), the Newton-half column passes P2, P3, P5, P8 and P11 (csrc/lj_column_half.cu), P1
 (csrc/dynslice.cu) and P12 (csrc/zwin_proto.cu: the pass and its fold,
 against the twin, whose reactions are added window by window), and the
 graph-replayed slope of prof.timing against the eager one.
@@ -49,7 +51,7 @@ from lammps_kokkos_port_tpu_torch.prof import ablate_kernels as ak
 from lammps_kokkos_port_tpu_torch.prof import column_half_kernels as chk
 from lammps_kokkos_port_tpu_torch.prof import dynslice, timing
 from lammps_kokkos_port_tpu_torch.prof import dynslice_kernels as dk
-from lammps_kokkos_port_tpu_torch.prof import v3_kernels
+from lammps_kokkos_port_tpu_torch.prof import planted, v3_kernels
 from lammps_kokkos_port_tpu_torch.prof import zwin_kernels as zk
 from lammps_kokkos_port_tpu_torch.prof.grid import sorted_planes
 from test_torch_pair_kernel_cuda import (KEY, _lattice_grid,
@@ -512,17 +514,166 @@ def _live_pad(sp):
 def test_v3_kernels_keep_their_candidate_mask(cuda, dtype):
     """P6 k1 and k2 with a pad inside the cutoff of a real row: against
     their twins (cand_id >= 0: the pad acts on no row), and unlike K7, which
-    takes the pad as a candidate of the real row."""
+    takes the pad as a candidate of the real row (K7 against its twin on
+    the same input)."""
     sp = _planes(cuda, dtype)
     col, real, _ = _live_pad(sp)
     args = (sp.key, sp.ncells, *col, sp.prd)
     k7 = column_kernels.lj_column_force(*args)
+    _assert_close(k7, column_kernels.lj_column_force_reference(*args), dtype)
     for name in ("v3_k1", "v3_k2"):
         got = getattr(v3_kernels, name)(*args)
         _assert_close(got, v3_kernels.v3_reference(
             *args, grouped=name == "v3_k2"), dtype)
         assert abs(float(got[0].reshape(-1)[real])
                    - float(k7[0].reshape(-1)[real])) > 1.0
+
+
+def _column_grid(ncells, cc, seed, dtype, cuda):
+    """K7's arguments on a lattice grid of any shape: jittered atoms at
+    random lanes among pads, float ids (row, or -1 for a pad)."""
+    ncell = ncells[0] * ncells[1] * ncells[2]
+    counts = [(c * 5) % (min(cc, 32) // 2) + 2 for c in range(ncell)]
+    if cc > 32:
+        counts[ncell // 2] = 40  # two row passes of one warp
+    g, prd, valid = _lattice_grid(ncells, cc, counts, seed, dtype, cuda)
+    nx, ny, nz = ncells
+    shape = (nx * ny, nz, cc)
+    ids = _ids(valid).to(dtype)
+    return (KEY, ncells, *(a.reshape(shape) for a in g), ids.reshape(shape),
+            prd)
+
+
+def _column_check(args, dtype):
+    """K7 and k1 (P7's instance) once each, counted, against their twins;
+    returns {name: (kernel, twin)}."""
+    out = {}
+    for name, fn, plain in (
+            ("K7", column_kernels.lj_column_force,
+             column_kernels.lj_column_force_reference),
+            ("k1", v3_kernels.v3_k1, v3_kernels.v3_reference)):
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = plain(*args)
+        _assert_close(got, ref, dtype)
+        out[name] = (torch.stack([a.reshape(-1) for a in got]),
+                     torch.stack([a.reshape(-1) for a in ref]))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ncells,cc", [((1, 1, 1), 16), ((2, 2, 4), 32),
+                                       ((3, 3, 3), 32), ((3, 3, 4), 64)])
+def test_column_walk_any_grid(cuda, dtype, ncells, cc):
+    """K7 and k1 on the walk take any grid the JAX function takes: one
+    cell per dim (a row's 26 images carry its id; other rows' images count
+    once per stencil entry), two (one column named by two entries with
+    other shifts), three, and cc 64 with a 40-atom cell (two row passes)."""
+    out = _column_check(_column_grid(ncells, cc, 5, dtype, cuda), dtype)
+    for _, ref in out.values():
+        assert ref.abs().max().item() > 0.01  # pairs within the cutoff
+
+
+@pytest.mark.parametrize("case", planted.CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_column_walk_cutoff_across_wrapped_faces(cuda, dtype, case):
+    """A pair planted across each periodic face at r2 = cutsq (in K1's
+    frame) and one ulp either side (prof/planted.wrapped_pairs): K7 and k1
+    shift the candidate, as JAX K7 does, and take on each row the decision
+    of their twins, which form r2 alike."""
+    ncells, cc = (3, 3, 3), 32
+    prd = torch.full((3,), 10.2, dtype=dtype)
+    g, gi, rows, dec = planted.wrapped_pairs(ncells, cc, prd, KEY[3], dtype,
+                                             case, device=cuda)
+    shape = (9, 3, cc)
+    args = (KEY, ncells, *(a.reshape(shape) for a in g), gi.reshape(shape),
+            prd.to(cuda))
+    want = {axis: d["candidate"] for axis, d in dec.items()}
+    for got, ref in _column_check(args, dtype).values():
+        assert planted.taken(ref, rows) == want
+        assert planted.taken(got, rows) == want
+        assert int(got.count_nonzero()) == int(ref.count_nonzero())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_column_walk_repeats_bit_for_bit(cuda, dtype):
+    """Each row is written once by its lane, no reductions: two launches
+    give the same bits."""
+    sp = _planes(cuda, dtype)
+    args = (sp.key, sp.ncells, *sp.col, sp.prd)
+    for fn in (column_kernels.lj_column_force, v3_kernels.v3_k1):
+        first, second = fn(*args), fn(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_column_walk_launch_shape(cuda):
+    """K7's launch as its library reports it: one warp per cell, four cells
+    a block, within the default 48 KB of shared memory."""
+    for dtype in DTYPES:
+        s = column_kernels.launch_shape((12, 12, 12), dtype)
+        assert s["threads"] == (32, 4)
+        assert s["blocks"] == 12 ** 3 // 4
+        assert 0 < s["smem_bytes"] <= 48 * 1024
+
+
+def _live_pair_inputs(sp, dtype, cuda):
+    """pair_only's live inputs on the grid of `sp`: positions 3 +- [0.8,
+    1.6] per axis, ids -1..2."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    gi = sp.col[3]
+    live = [3.0 + torch.where(u < 0.5, -1.0, 1.0) * (0.8 + 0.8 * u)
+            for u in (torch.rand(a.shape, generator=gen, device=cuda,
+                                 dtype=dtype) for a in sp.col[:3])]
+    ids = torch.remainder(torch.arange(gi.numel(), device=cuda),
+                          4).to(dtype).reshape(gi.shape) - 1
+    return (sp.key, sp.ncells, *live, ids, sp.prd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [1, 7, 449, 896, 2048])
+def test_pair_only_lanes_match_twin(cuda, dtype, lanes):
+    """pair_only over any number of candidate lanes, each row's lanes split
+    over its threads (a tail shorter than the split, odd counts, the
+    largest scratch): against the twin's `lanes` equal terms."""
+    args = _live_pair_inputs(_planes(cuda, dtype), dtype, cuda)
+    ref = ak.pair_only_reference(*args, lanes=lanes)
+    assert ref[0].abs().max() > 0
+    _assert_close(ak.pair_only(*args, lanes=lanes), ref, dtype)
+
+
+def test_pair_only_time_grows_with_lanes(cuda):
+    """The ablation runs the body on every lane: at twice the lanes the
+    kernel takes at least 1.8 times as long (CUDA events around 20 calls,
+    median of 3 in turns, on a (24, 24, 24) x cc 32 grid of live inputs,
+    where the kernel and not the launch sets the time)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (24 * 24, 24, 32)
+    pos = [3.0 + torch.rand(shape, generator=gen, device=cuda) for _ in
+           range(3)]
+    ids = torch.remainder(torch.arange(pos[0].numel(), device=cuda),
+                          4).float().reshape(shape) - 1
+    args = (KEY, (24, 24, 24), *pos, ids,
+            torch.full((3,), 72.0, device=cuda))
+
+    def ms(lanes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            ak.pair_only(*args, lanes=lanes)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    ms(448), ms(896)  # warm-up and build
+    times = {448: [], 896: []}
+    for _ in range(3):
+        for lanes in times:
+            times[lanes].append(ms(lanes))
+    ratio = sorted(times[896])[1] / sorted(times[448])[1]
+    assert ratio >= 1.8, times
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
