@@ -90,9 +90,10 @@ checks them on the card:
      plain version (32k f32 and f64; P12 f32, per element against the sum
      of the magnitudes of its terms), P3 against lj_cell_force, P6 k1 and
      k2 against each other and K7 and with a pad in the cutoff (K7 against
-     its twin there too), k1 (P7's instance) on phase 13's grids and
-     planted pairs, P1 in both modes at G = 512 and G = 128, and each
-     kernel's device time per call.
+     its twin there too), k1 (P7's instance) and k2 on phase 13's grids
+     and planted pairs, P1 in both modes at G = 512 and G = 128, and each
+     kernel's device time per call (P12's bound: every lane-pair's r2 and
+     cutoff test, the work the probe defines).
 
 The `[rank]` lines order the kernels for redesign: the decks' kernels by
 launches per step times device time above the bound at each deck's size,
@@ -211,11 +212,17 @@ REDESIGNED = ("lj_cell_force", "lj_cell_dense", "eam_cell_rho",
                   "iso_full", "iso_batched", "iso_redonly", "iso_noreverse",
                   "iso_noassembly", "writeonce", "halfv2", "halfv2_approx",
                   "zchunk_fwd", "zchunk_fused", "cc32_half")),
-              "lj_column_force", "lj_column_v3_k1", "lj_ablate",
-              "lj_ablate_pair512")
+              "lj_column_force", "lj_column_v3_k1", "lj_column_v3_k2",
+              "lj_ablate", "lj_ablate_pair512", "zwin_proto")
 # the bound of the pair ablations: the work they define, every lane of every
 # row through the body, not only the pairs a row needs
 ABLATION_BOUND = "defined: cap rows x lanes x LJ_FWD_PAIR_OPS"
+# P12's bound: the work the probe defines. Its windows are not spatially
+# sorted, so no prune can skip a lane-pair: each needs its r2 and cutoff
+# test (3 subtractions, 3 products, 2 sums, 1 compare)
+ZWIN_TEST_OPS = 9
+ZWIN_BOUND = ("defined: every lane-pair x ZWIN_TEST_OPS + the pairs in the "
+              "cutoff x LJ_PAIR_OPS")
 # pair_only's device time at twice the lanes over its time at 14 * cc = 448
 # (the body runs on every lane, so the time must follow the lanes)
 LANE_RATIO_MIN = 1.8
@@ -1062,7 +1069,7 @@ def asm_only_loads() -> dict:
 
 
 def column_edge_checks(dev, name: str, fn, plain) -> dict:
-    """K7 or P6 k1 (`fn`, its twin `plain`) on the inputs its walk finds
+    """K7, P6 k1 or k2 (`fn`, its twin `plain`) on the inputs its walk finds
     hard, f32 (rtol 1e-4) and f64 (1e-10): lattice grids of EDGE_GRIDS
     (prof.planted.lattice_grid: jittered atoms at random lanes among pads,
     float ids); a pair planted across each periodic face at r2 = cutsq in
@@ -1829,8 +1836,10 @@ def phase_last_sites(dev) -> dict:
                     and scaled <= 1e-4 and planted > 0.1):
                 raise RuntimeError(f"P12 zwin_proto f32: scaled error "
                                    f"{scaled}, planted fault {planted}")
-            checked["zwin_proto"] = (zerr, bound_of(zpairs, LJ_PAIR_OPS,
-                                                    zbytes, dtype))
+            checked["zwin_proto"] = (zerr, {
+                **bound_of(zpairs, LJ_PAIR_OPS, zbytes, dtype,
+                           row_ops=ZWIN_TEST_OPS * zk.ZwinShape().lane_pairs),
+                "bound_work": ZWIN_BOUND})
             timed["zwin_proto"] = lambda: zk.zwin_proto(*zin)
             plain["zwin_proto"] = lambda: zk.zwin_reference(*zin)
             timed["lj_cell_force"] = lambda: lj_cell_force(
@@ -1863,11 +1872,15 @@ def phase_last_sites(dev) -> dict:
         "no single PyTorch call: a gather, a sum over the windows and a "
         "scale")
     out["lj_column_v3_k1"]["also_replaces"] = [P7_SITE]
-    edge = column_edge_checks(dev, "P6 k1 (P7) lj_column_v3_k1", v3k.v3_k1,
-                              v3k.v3_reference)
-    entry = out["lj_column_v3_k1"]
-    entry["max_abs_err"] = max(entry["max_abs_err"], edge["max_abs_err"])
-    entry["edge_checks"] = edge["checks"]
+    for name, label, fn, grouped in (
+            ("lj_column_v3_k1", "P6 k1 (P7)", v3k.v3_k1, False),
+            ("lj_column_v3_k2", "P6 k2", v3k.v3_k2, True)):
+        edge = column_edge_checks(
+            dev, f"{label} {name}", fn,
+            lambda *a, g=grouped: v3k.v3_reference(*a, grouped=g))
+        entry = out[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], edge["max_abs_err"])
+        entry["edge_checks"] = edge["checks"]
     return out
 
 

@@ -1,7 +1,7 @@
 // The candidate walk of the port's sorted and dense cell kernels (sm_90a):
 // lj_cell_force.cu, eam_cell.cu, lj_plane_half.cu, lj_column_half.cu and
-// lj_column_full.cu's K7 and P6 k1 (the sorted layout, sorted_grid.cuh)
-// and lj_cell_dense.cu (list mode "cell").
+// lj_column_full.cu's K7 and P6 (the sorted layout, sorted_grid.cuh) and
+// lj_cell_dense.cu (list mode "cell").
 //
 // Unit of work: one warp owns up to 32 rows of one cell (a row pass) and
 // walks that cell's stencil entries on its own (G::kEntries neighbour
@@ -344,6 +344,44 @@ struct HalfFrames<G, std::void_t<decltype(G::kHalfFrames)>>
     : std::bool_constant<G::kHalfFrames> {};
 constexpr int kMirrored = 13;  // entries 0-12 of the full stencil's 27
 
+// G::kGroupEntries, where a geometry has it (sorted_grid::IdGrid's third
+// parameter, P6 k2): pass 2 sums each group of that many consecutive
+// stencil entries on its own and adds the group's sum into the row's total
+// when the walk leaves the group, in walk order (as k2 adds its (dx, dy)
+// columns); 0 for a geometry without the member (one running sum: Groups
+// below compiles to nothing)
+template <typename G, typename = void>
+struct GroupEntries : std::integral_constant<int, 0> {};
+template <typename G>
+struct GroupEntries<G, std::void_t<decltype(G::kGroupEntries)>>
+    : std::integral_constant<int, G::kGroupEntries> {};
+
+// A row's sums with groups: acc holds the current group's sum, `total` the
+// groups' before it. Before a pair of walk tile t at or past `next`, the
+// first tile of the next group (tile t belongs to entry t / tiles), acc
+// goes into the total; `finish` adds the last group's.
+template <typename T, int N, bool On> struct Groups {
+  __device__ void finish(T (&)[N]) const {}
+};
+template <typename T, int N> struct Groups<T, N, true> {
+  T total[N];
+  int span, next;  // tiles per group; the first tile past the current group
+  __device__ void at(int t, T (&acc)[N]) {
+    if (t < next) return;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      total[a] += acc[a];
+      acc[a] = T(0);
+    }
+    do next += span;
+    while (t >= next);
+  }
+  __device__ void finish(T (&acc)[N]) const {
+#pragma unroll
+    for (int a = 0; a < N; ++a) acc[a] = total[a] + acc[a];
+  }
+};
+
 template <typename T, typename G>
 __device__ __forceinline__ void issue_batch(const G& geo,
                                             const typename G::Entry& mine,
@@ -488,6 +526,56 @@ __device__ __forceinline__ void pass_pairs(const G& geo, const B& body,
   }
 }
 
+// Pass 2 of a batch with group sums (GroupEntries > 0), for a live row:
+// pass_pairs' two chains, each pair's term added into the current group's
+// sum after `groups` has closed the groups the walk left. Where the second
+// pair's tile (past the batch when there is none) is still in the current
+// group, so is the first: one test an iteration.
+template <typename T, typename G, typename B, typename Gs>
+__device__ __forceinline__ void pass_pairs_grouped(const G& geo, const B& body,
+                                                   const Cand<T>& own, int t0,
+                                                   int nb,
+                                                   const SmemOf<T, G>& sm,
+                                                   T (&acc)[B::kAcc],
+                                                   Gs& groups) {
+  const int lane = threadIdx.x;
+  const unsigned* masks = sm.masks();
+  int g = 0;
+  unsigned m = masks[lane];
+  for (;;) {
+    while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+    if (m == 0) break;
+    const int g1 = g;
+    const int s1 = g * kTile + __ffs(m) - 1;
+    m &= m - 1;
+    while (m == 0 && ++g < nb) m = masks[g * kTile + lane];
+    const bool two = m != 0;
+    const int s2 = two ? g * kTile + __ffs(m) - 1 : s1;
+    m &= m - 1;
+    const Cand<T> c1 = sm.get(s1), c2 = sm.get(s2);
+    T d1[3], d2[3];
+    const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
+    const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
+    const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+    if (t0 + g < groups.next) {
+#pragma unroll
+      for (int a = 0; a < B::kAcc; ++a) {
+        acc[a] += B::part(d1, f1, a);
+        if (two) acc[a] += B::part(d2, f2, a);
+      }
+      continue;
+    }
+    groups.at(t0 + g1, acc);
+#pragma unroll
+    for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d1, f1, a);
+    if (two) {
+      groups.at(t0 + g, acc);
+#pragma unroll
+      for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d2, f2, a);
+    }
+  }
+}
+
 // Pass 1 and pass 2 (or the one pass) of a batch, for a live row.
 template <typename T, typename G, typename B, typename R>
 __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
@@ -589,6 +677,9 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
   static_assert(!kFrames || (G::kTwoPass && !R::kOn && 3 * kB <= 32),
                 "frames decide in pass 1 and leave pass 2 plain; 3 frame "
                 "bits a tile in a word");
+  constexpr int kGroup = GroupEntries<G>::value;
+  static_assert(kGroup == 0 || (G::kTwoPass && !R::kOn && !kFrames),
+                "group sums are kept in a plain pass 2 without reactions");
   const int lane = threadIdx.x;
   const int ntiles = G::kEntries * geo.tiles;
   T* raw = sm.raw();
@@ -603,6 +694,9 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
                                (mine.shx != T(0) || mine.shy != T(0) ||
                                 mine.shz != T(0)));
   const T near_cutsq = cutsq * (T(1) + T(1.0 / 4096));
+  Groups<T, B::kAcc, (kGroup > 0)> groups;
+  if constexpr (kGroup > 0)
+    groups = {{}, kGroup * geo.tiles, kGroup * geo.tiles};
   issue_batch(geo, mine, 0, min(kB, ntiles), raw);
   for (int t0 = 0; t0 < ntiles; t0 += kB) {
     const int nb = min(kB, ntiles - t0);
@@ -640,10 +734,20 @@ __device__ __forceinline__ void walk(const G& geo, const B& body,
         continue;
       }
     }
+    if constexpr (kGroup > 0) {
+      if (live) {
+        const T none[3] = {T(0), T(0), T(0)};
+        pass_masks<false>(geo, own, none, 0u, t0, nb, self_tile, self_bit,
+                          cutsq, sm);
+        pass_pairs_grouped(geo, body, own, t0, nb, sm, acc, groups);
+      }
+      continue;
+    }
     if (!live) continue;
     batch_passes(geo, body, own, t0, nb, self_tile, self_bit, cutsq, sm, acc,
                  react);
   }
+  if (live) groups.finish(acc);
 }
 
 // Launch geometry: one warp per cell, kWarpsPerBlock cells a block.

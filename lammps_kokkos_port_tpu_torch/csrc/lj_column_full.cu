@@ -22,14 +22,15 @@
 //   k1 (k1_kernel :109-142, the 27 blocks concatenated to [nz, 27 cc]) is
 //      K7's pass with CandLive = true;
 //   k2 (k2_kernel :145-183, accumulated over the nine (dx, dy) columns,
-//      three dz blocks each) is a split candidate walk: one block per cell,
-//      one warp row (thread group) per (dx, dy) column, which stages and
-//      walks that column's three blocks for every row of the cell; the nine
-//      partial sums meet in shared memory and are added in group order, as
-//      k2 adds them. Nine times the threads of a one-thread-per-row sweep,
-//      a ninth of the candidates per thread. It keeps that first design.
+//      three dz blocks each) is k1's instance with group sums (IdGrid's
+//      Group = 3): the walk's entries run dx, dy, dz with dz innermost, so
+//      group g is entries 3g..3g+2, and pass 2 keeps each row's group sum
+//      apart and adds it into the row's total when the walk leaves the
+//      group, in k2's order. Its first design, a split walk (nine thread
+//      groups a cell, every slot of its column walked, pads included, the
+//      body inside the loop; cc <= 96), lost to the walk on this card.
 //
-// What bounds K7 and k1 on this card: issue slots and latency, not bytes
+// What bounds K7, k1 and k2 on this card: issue slots and latency, not bytes
 // (each row reads 4 values and writes 3). The first design (a
 // sweep: one thread per row walking all 27 * cc candidate slots, pads
 // included, the pair body inside the loop; 0.0910 ms at the 32k melt in
@@ -58,22 +59,19 @@
 
 namespace {
 
-using cell_stencil::Rn;
-using cell_stencil::wrap_dim;
+constexpr int kK2Group = 3;  // k2: the three dz entries of a (dx, dy) column
 
-constexpr int kGroups = 9;  // the (dx, dy) columns of the 27-cell stencil
+template <typename T, bool CandLive, int Group = 0>
+using Geo = sorted_grid::IdGrid<T, CandLive, Group>;
 
-template <typename T, bool CandLive>
-using Geo = sorted_grid::IdGrid<T, CandLive>;
-
-template <typename T, bool CandLive>
+template <typename T, bool CandLive, int Group>
 __global__ void CELL_WALK_BOUNDS lj_column_full_kernel(
     const T* __restrict__ gx, const T* __restrict__ gy,
     const T* __restrict__ gz, const T* __restrict__ gi,
     const T* __restrict__ prd, T* __restrict__ fx, T* __restrict__ fy,
     T* __restrict__ fz, int nx, int ny, int nz, int cc, T lj1, T lj2,
     T cutsq) {
-  sorted_grid::walk_grid<Geo<T, CandLive>>(
+  sorted_grid::walk_grid<Geo<T, CandLive, Group>>(
       {gx, gy, gz, gi}, prd, nx, ny, nz, cc, cutsq,
       cell_walk::LjBody<T>{lj1, lj2},
       [=](int row, const T (&acc)[3]) {
@@ -83,113 +81,19 @@ __global__ void CELL_WALK_BOUNDS lj_column_full_kernel(
       });
 }
 
-// P6 k2: blockDim = (lanes, 9), one block per cell. Group g = threadIdx.y
-// walks the column (dx, dy) = (g / 3 - 1, g % 3 - 1) at dz = -1, 0, 1 (the
-// order of k2's neighbor_blocks); smem: stage[9][3 dz][4][cc], then
-// part[9][3][cc].
-template <typename T>
-__global__ void lj_column_groups_kernel(
-    const T* __restrict__ gx, const T* __restrict__ gy,
-    const T* __restrict__ gz, const T* __restrict__ gi,
-    const T* __restrict__ prd, T* __restrict__ fx, T* __restrict__ fy,
-    T* __restrict__ fz, int nx, int ny, int nz, int cc, T lj1, T lj2,
-    T cutsq) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = threadIdx.y, lane = threadIdx.x;
-  T* stage = reinterpret_cast<T*>(smem_raw) + g * 3 * 4 * cc;
-  T* part = reinterpret_cast<T*>(smem_raw) + kGroups * 3 * 4 * cc;
-  const int cell = blockIdx.x;
-  const int cz = cell % nz, cy = (cell / nz) % ny, cx = cell / (nz * ny);
-  T shx, shy;
-  const int wx = wrap_dim(cx + g / 3 - 1, nx, prd[0], &shx);
-  const int wy = wrap_dim(cy + g % 3 - 1, ny, prd[1], &shy);
-  for (int d = 0; d < 3; ++d) {
-    T shz;
-    const int wz = wrap_dim(cz + d - 1, nz, prd[2], &shz);
-    const int nbase = ((wx * ny + wy) * nz + wz) * cc;
-    T* blk = stage + d * 4 * cc;
-    for (int j = lane; j < cc; j += blockDim.x) {
-      blk[j] = gx[nbase + j] + shx;
-      blk[cc + j] = gy[nbase + j] + shy;
-      blk[2 * cc + j] = gz[nbase + j] + shz;
-      blk[3 * cc + j] = gi[nbase + j];
-    }
-  }
-  __syncthreads();
-  const int row = cell * cc + lane;
-  const bool live = lane < cc;
-  if (live) {
-    const T ox = gx[row], oy = gy[row], oz = gz[row], oid = gi[row];
-    T ax = T(0), ay = T(0), az = T(0);
-    for (int d = 0; d < 3; ++d) {
-      const T* blk = stage + d * 4 * cc;
-      for (int j = 0; j < cc; ++j) {
-        const T cid = blk[3 * cc + j];
-        const T dx = ox - blk[j];
-        const T dy = oy - blk[cc + j];
-        const T dz = oz - blk[2 * cc + j];
-        const T r2 = Rn<T>::add(Rn<T>::add(Rn<T>::mul(dx, dx),
-                                           Rn<T>::mul(dy, dy)),
-                                Rn<T>::mul(dz, dz));
-        if (r2 < cutsq && cid != oid && cid >= T(0)) {
-          const T r2inv = T(1) / r2;
-          const T r6inv = r2inv * r2inv * r2inv;
-          const T fpair = r6inv * (lj1 * r6inv - lj2) * r2inv;
-          ax += dx * fpair;
-          ay += dy * fpair;
-          az += dz * fpair;
-        }
-      }
-    }
-    part[(g * 3) * cc + lane] = ax;
-    part[(g * 3 + 1) * cc + lane] = ay;
-    part[(g * 3 + 2) * cc + lane] = az;
-  }
-  __syncthreads();
-  if (g == 0 && live) {
-    T ax = T(0), ay = T(0), az = T(0);
-    for (int k = 0; k < kGroups; ++k) {  // in group order, as k2 adds them
-      ax += part[(k * 3) * cc + lane];
-      ay += part[(k * 3 + 1) * cc + lane];
-      az += part[(k * 3 + 2) * cc + lane];
-    }
-    fx[row] = ax;
-    fy[row] = ay;
-    fz[row] = az;
-  }
-}
-
-// variant 0: K7; 1: P6 k1 (ci >= 0); 2: P6 k2 (ci >= 0, split walk)
+// variant 0: K7; 1: P6 k1 (ci >= 0); 2: P6 k2 (ci >= 0, group sums); one
+// launch shape for all three
 template <typename T>
 int launch(int variant, const void* gx, const void* gy, const void* gz,
            const void* gi, const void* prd, void* fx, void* fy, void* fz,
            int nx, int ny, int nz, int cc, double lj1, double lj2,
            double cutsq, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 2) {
-    const int lanes = ((cc + 31) / 32) * 32;
-    if (lanes * kGroups > 1024) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = size_t(kGroups) * 15 * cc * sizeof(T);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(&lj_column_groups_kernel<T>),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    lj_column_groups_kernel<T><<<nx * ny * nz, dim3(lanes, kGroups), smem,
-                                 st>>>(
-        static_cast<const T*>(gx), static_cast<const T*>(gy),
-        static_cast<const T*>(gz), static_cast<const T*>(gi),
-        static_cast<const T*>(prd), static_cast<T*>(fx), static_cast<T*>(fy),
-        static_cast<T*>(fz), nx, ny, nz, cc, static_cast<T>(lj1),
-        static_cast<T>(lj2), static_cast<T>(cutsq));
-    return static_cast<int>(cudaGetLastError());
-  }
   const cell_walk::Launch L =
-      variant == 1 ? cell_walk::launch_shape<T, Geo<T, true>>(nx * ny * nz)
-                   : cell_walk::launch_shape<T, Geo<T, false>>(nx * ny * nz);
-  auto kernel = variant == 1 ? lj_column_full_kernel<T, true>
-                             : lj_column_full_kernel<T, false>;
+      cell_walk::launch_shape<T, Geo<T, false>>(nx * ny * nz);
+  auto kernel = variant == 2   ? lj_column_full_kernel<T, true, kK2Group>
+                : variant == 1 ? lj_column_full_kernel<T, true, 0>
+                               : lj_column_full_kernel<T, false, 0>;
   kernel<<<L.grid, L.block, L.smem, st>>>(
       static_cast<const T*>(gx), static_cast<const T*>(gy),
       static_cast<const T*>(gz), static_cast<const T*>(gi),
@@ -219,7 +123,7 @@ LJ_COLUMN_FULL_ENTRY(lj_column_v3_k1_f64, double, 1)
 LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f32, float, 2)
 LJ_COLUMN_FULL_ENTRY(lj_column_v3_k2_f64, double, 2)
 
-// The launch K7 (and k1: the same shape) makes on `ncell` cells: out[0]
+// The launch K7 (and k1, k2: the same shape) makes on `ncell` cells: out[0]
 // blocks, out[1] x out[2] threads per block, out[3] dynamic shared memory
 // bytes.
 extern "C" int lj_column_full_shape(int ncell, int f64, int* out) {

@@ -1,6 +1,6 @@
 // The sorted cell-major layout as the cell_walk.cuh kernels read it
 // (sm_90a): lj_cell_force.cu (K1-K3's port, FramedGrid), eam_cell.cu
-// (K4/K5's), lj_column_full.cu (K7's and P6 k1's, IdGrid) and, over the
+// (K4/K5's), lj_column_full.cu (K7's and P6's, IdGrid) and, over the
 // half stencil (HalfGrid), lj_plane_half.cu (K8/P10's) and
 // lj_column_half.cu (P2, P3, P5, P8 and P11, whose ColumnGrid is a sibling
 // of HalfGrid).
@@ -13,8 +13,8 @@
 // its row's sum once: deterministic, no atomics. FramedGrid: the same walk
 // with each pair formed in the frame of the Newton-half kernels (below).
 // IdGrid: the same walk over packed (x, y, z, id) records with K7's id
-// rule. HalfGrid: the 14 blocks of the half stencil, shifted alike, each
-// pair once.
+// rule (and, for P6 k2, group sums). HalfGrid: the 14 blocks of the half
+// stencil, shifted alike, each pair once.
 //
 // The premise below holds for HalfGrid too: its frames are some of the
 // full stencil's.
@@ -188,10 +188,16 @@ template <typename T, int P> struct FramedGrid : SortedGrid<T, P> {
 // and every periodic image of the own row (self_tile -1), which at nx = 1
 // are 26 candidates. With CandLive (P6 k1) a candidate with id < 0 is
 // dropped when it is packed (benchmarks/prof/prof_kernel_v3.py:131-134).
-// Candidates are shifted by +-prd as JAX K7 shifts them (no frames).
-template <typename T, bool CandLive> struct IdGrid : SortedGrid<T, 4> {
+// Candidates are shifted by +-prd as JAX K7 shifts them (no frames). With
+// Group = 3 (P6 k2) pass 2 sums each (dx, dy) column of the stencil, its
+// three dz entries, on its own and adds the nine column sums in order
+// (cell_walk.cuh, GroupEntries): the entries run dx, dy, dz with dz
+// innermost, k2's group order (prof_kernel_v3.py:80-106, :155-183).
+template <typename T, bool CandLive, int Group = 0>
+struct IdGrid : SortedGrid<T, 4> {
   using Base = SortedGrid<T, 4>;
   static constexpr bool kSelfByLane = false;
+  static constexpr int kGroupEntries = Group;
 
   __device__ bool pack(const typename Base::Entry& e, int k, int lane,
                        const T* raw, Cand<T>* c) const {

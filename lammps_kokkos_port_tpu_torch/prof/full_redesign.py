@@ -95,13 +95,14 @@ VARIANTS = {"split8": ("constexpr int kSplit = 4;  // threads per row (a "
                        ("pair_only", "pair_only_approx", "P4"))}
 
 
-def parent_sources(parent) -> dict:
-    """{source name: the earlier tree's file}; raises unless `parent` is a
-    directory holding every source and at least one header."""
+def parent_sources(parent, sources=None) -> dict:
+    """{source name: the earlier tree's file} of `sources` (default
+    SOURCES); raises unless `parent` is a directory holding every source
+    and at least one header."""
     root = Path(parent)
     if not root.is_dir():
         raise FileNotFoundError(f"--parent {parent}: not a directory")
-    out = {name: root / name for name in SOURCES}
+    out = {name: root / name for name in sources or SOURCES}
     missing = [name for name, p in out.items() if not p.is_file()]
     if missing or not any(root.glob("*.cuh")):
         raise FileNotFoundError(f"--parent {parent}: missing "
@@ -129,12 +130,12 @@ def variant_source(dest: Path, old: str, new: str) -> Path:
     return out
 
 
-def bind_parent(paths: dict) -> dict:
+def bind_parent(paths: dict, entries=None) -> dict:
     """{contender: {"f32": fn, "f64": fn}} of the earlier tree's
-    libraries."""
+    libraries, for the contenders of `entries` (default PARENT_ENTRIES)."""
     libs = {name: cuda_build.load(p) for name, p in paths.items()}
     out = {}
-    for name, (src, stem, types, dts) in PARENT_ENTRIES.items():
+    for name, (src, stem, types, dts) in (entries or PARENT_ENTRIES).items():
         out[name] = {}
         for dt in dts:
             fn = getattr(libs[src], f"{stem}_{dt}")

@@ -7,8 +7,8 @@ under the script's labels:
   K1 full27 concat   P6 k1 (prof/v3_kernels `v3_k1`): the 27-cell
                      forces, a candidate taken when its id differs from the
                      own id and is >= 0;
-  K2 col-group acc   P6 k2 (`v3_k2`): the same forces as a split candidate
-                     walk, one thread group per (dx, dy) column;
+  K2 col-group acc   P6 k2 (`v3_k2`): the same forces, summed per (dx, dy)
+                     column of the stencil and added in group order;
   K1 vs shipped      P7, k1 once more against the shipped half kernel,
                      here the port's lj kernel (ops/pair_kernels
                      .lj_cell_force, the counterpart of K1

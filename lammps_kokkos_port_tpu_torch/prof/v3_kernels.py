@@ -16,9 +16,9 @@ layout `[nx*ny, nz, cc]`:
            shipped kernel: the same instance, another caller;
   `v3_k2`  k2_kernel (:145-183): the same forces accumulated over the nine
            (dx, dy) neighbour columns, three dz blocks each, with no
-           27-block concat. On the card a split candidate walk: one thread
-           group (warp row) per (dx, dy) column, the nine partial sums
-           reduced in shared memory in group order.
+           27-block concat. On the card k1's walk with group sums
+           (IdGrid<T, true, 3>): each row's sum over a column's three dz
+           entries kept apart and the nine added in group order.
 
 The docstring's K3 (r2 by an MXU dot) has no body in the script: nothing to
 port. CPU tensors go to the plain twins, CUDA tensors to
@@ -38,7 +38,6 @@ from ..ops.column_kernels import column_channels
 from ..ops.pair_kernels import check_launch, check_pad_cutoff, stencil
 
 SOURCE = cuda_build.CSRC / "lj_column_full.cu"
-MAX_CELL_CAP_K2 = 96  # k2: nine warp rows of cc rounded to a warp <= 1024
 
 
 def v3_reference(key, ncells, gx, gy, gz, gi, prd, grouped=False):
@@ -91,11 +90,8 @@ def _wrapper(name, grouped, doc):
             return v3_reference(key, ncells, gx, gy, gz, gi, prd, grouped)
         check_launch(fl, prd)
         cc = gx.shape[-1]
-        if grouped and cc > MAX_CELL_CAP_K2:
-            raise ValueError(f"{name}: cell_cap {cc} > {MAX_CELL_CAP_K2}")
         _, lj1, lj2, cutsq = key
-        if not grouped:  # k1 walks with the pad skip of the sorted layout
-            check_pad_cutoff(cutsq)
+        check_pad_cutoff(cutsq)  # the walk's pad skip of the sorted layout
         out = torch.empty((3,) + tuple(gx.shape), dtype=gx.dtype,
                           device=gx.device)
         suffix = "f32" if gx.dtype == torch.float32 else "f64"
@@ -121,7 +117,6 @@ v3_k1 = _wrapper("v3_k1", False, """P6 K1 (and P7): lj/cut forces over the
     r2 < cutsq. key: ("lj", lj1, lj2, cutsq); gx, gy, gz, gi: [nx*ny, nz,
     cc] positions and float ids (-1 for padding); prd: [3]. Returns (fx,
     fy, fz), each [nx*ny, nz, cc].""")
-v3_k2 = _wrapper("v3_k2", True, """P6 K2: `v3_k1`'s forces as a split
-    candidate walk, one thread group per (dx, dy) column, the column sums
-    added in order (cell_cap <= 96 on the card). Arguments and result as
-    `v3_k1`.""")
+v3_k2 = _wrapper("v3_k2", True, """P6 K2: `v3_k1`'s forces with each
+    (dx, dy) column's sum kept apart and the nine column sums added in
+    order. Arguments and result as `v3_k1`.""")

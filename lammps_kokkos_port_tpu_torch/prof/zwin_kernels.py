@@ -15,13 +15,17 @@ Outputs: the forward sums fT* [S, NCOL] and the reactions, -sum_i fij of
 each lane, added into the lanes' windows of fL* [NCOL, SE].
 
 The TPU body adds the reaction windows into other columns and is race-free
-only on the in-order TPU grid; csrc/zwin_proto.cu keeps each column's five
-reaction strips in its block and a second kernel folds them into fL in a
-fixed order (no global atomics). The wrapper `zwin_proto` launches both
-(one call in `.launches`). Every shape the script fixes is a field of
-`ZwinShape`, so the tests run a small one. f32 only (the approximate
-reciprocal). The script's projection of atom-steps/s from TPU constants has
-no counterpart.
+only on the in-order TPU grid; csrc/zwin_proto.cu computes both outputs as
+gathers in one launch: each forward sum over its own atom's lanes, and each
+reaction element fL*[c, p] over the own atoms whose windows hold the
+candidate e*[c, p] (each written once, no atomics, no scratch; one call in
+`.launches`). Every shape the script fixes is a field of `ZwinShape`, so
+the tests run a small one. f32 only (the approximate reciprocal). The
+script's projection of atom-steps/s from TPU constants has no counterpart.
+The windows must lie in their rows: the own window of the last chunk
+(WS <= G + 8, checked) and each neighbour window, st_w + NPC - 1 + WN <=
+SE (not checked: the starts live on the device; the twin raises, the
+kernel reads past the row).
 
 The script's uniform random inputs hold a few near-coincident pairs, whose
 forces reach 1e14 while the rest are of order 1, so a tolerance scaled by
@@ -72,12 +76,9 @@ class ZwinShape:
         return self.ws + 4 * self.wn
 
     @property
-    def own_len(self) -> int:  # the own reaction strip: windows at 8k
-        return OWN * (self.npc - 1) + self.ws
-
-    @property
-    def nb_len(self) -> int:  # each neighbour strip: windows at k
-        return self.npc - 1 + self.wn
+    def lane_pairs(self) -> int:
+        """(own atom, lane) pairs: each needs its r2 and cutoff test."""
+        return self.ncol * self.s * self.nlane
 
 
 def zwin_inputs(shape: ZwinShape = ZwinShape(), seed: int = 0, device="cpu"):
@@ -96,7 +97,8 @@ def zwin_inputs(shape: ZwinShape = ZwinShape(), seed: int = 0, device="cpu"):
 
 
 def _check(shape, ex, ey, ez, xT, yT, zT, starts):
-    if shape.s % OWN or shape.npc < 1 or len(shape.offsets) != 4:
+    if (shape.s % OWN or shape.npc < 1 or len(shape.offsets) != 4
+            or shape.ws > shape.g + OWN):
         raise ValueError(f"bad shape {shape}")
     want = {"e": (shape.ncol, shape.se), "T": (shape.s, shape.ncol)}
     for name, a, kind in (("ex", ex, "e"), ("ey", ey, "e"), ("ez", ez, "e"),
@@ -207,7 +209,7 @@ def _library() -> ctypes.CDLL:
     """Build (once per source and flag set) and load the kernel library."""
     lib = cuda_build.load(SOURCE)
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.zwin_proto_f32.argtypes = [ptr] * 14 + [i32] * 9 + [f64] * 3 + [ptr]
+    lib.zwin_proto_f32.argtypes = [ptr] * 13 + [i32] * 9 + [f64] * 3 + [ptr]
     lib.zwin_proto_f32.restype = i32
     return lib
 
@@ -215,8 +217,8 @@ def _library() -> ctypes.CDLL:
 def zwin_proto(ex, ey, ez, xT, yT, zT, starts, shape=ZwinShape()):
     """P12 on `shape`: ex, ey, ez [NCOL, SE] and xT, yT, zT [S, NCOL]
     float32, starts [NCOL, NPC, 4] int32. Returns (fTx, fTy, fTz, fLx, fLy,
-    fLz). CPU tensors go to `zwin_reference`; on CUDA tensors the pass and
-    the fold launch as one call (`zwin_proto.launches`)."""
+    fLz). CPU tensors go to `zwin_reference`; CUDA tensors to the kernel's
+    one launch (`zwin_proto.launches`)."""
     _check(shape, ex, ey, ez, xT, yT, zT, starts)
     if ex.device.type == "cpu":
         return zwin_reference(ex, ey, ez, xT, yT, zT, starts, shape)
@@ -225,12 +227,10 @@ def zwin_proto(ex, ey, ez, xT, yT, zT, starts, shape=ZwinShape()):
         raise ValueError("zwin kernel inputs must be contiguous CUDA tensors")
     fT = [torch.empty_like(a) for a in (xT, yT, zT)]
     fL = [torch.empty_like(a) for a in (ex, ey, ez)]
-    strips = torch.empty((shape.ncol, 3, shape.own_len + 4 * shape.nb_len),
-                         dtype=torch.float32, device=ex.device)
     with torch.cuda.device(ex.device):
         stream = torch.cuda.current_stream(ex.device).cuda_stream
         err = _library().zwin_proto_f32(
-            *(a.data_ptr() for a in (*inputs, *fT, *fL, strips)),
+            *(a.data_ptr() for a in (*inputs, *fT, *fL)),
             shape.ncol, shape.s, shape.g, shape.ws, shape.wn, *shape.offsets,
             CUTSQ, LJ1, LJ2, stream)
     if err != 0:

@@ -4,9 +4,12 @@ shared walk, on any grid, pairs at the cutoff across a wrapped face,
 bit-repeatable), K8 and P10 (csrc/lj_plane_half.cu), P9 and P4
 (csrc/lj_ablate.cu: any lane count, and a time that grows with the
 lanes), the Newton-half column passes P2, P3, P5, P8 and P11 (csrc/lj_column_half.cu), P1
-(csrc/dynslice.cu) and P12 (csrc/zwin_proto.cu: the pass and its fold,
-against the twin, whose reactions are added window by window), and the
-graph-replayed slope of prof.timing against the eager one.
+(csrc/dynslice.cu) and P12 (csrc/zwin_proto.cu: two gathers in one
+launch, against the twin, whose reactions are added window by window, at
+the script's shape, a small one and where windows read one column), and
+the graph-replayed slope of prof.timing against the eager one. K7, P6 k1
+and k2 (k1's walk with group sums) are held on any grid, at cc 64 and
+across wrapped faces, and repeat bit for bit.
 
 Needs an NVIDIA GPU with nvcc (marker `cuda`; skipped elsewhere). The
 kernels are built from the repository's sources at first use. Run on the
@@ -545,13 +548,15 @@ def _column_grid(ncells, cc, seed, dtype, cuda):
 
 
 def _column_check(args, dtype):
-    """K7 and k1 (P7's instance) once each, counted, against their twins;
-    returns {name: (kernel, twin)}."""
+    """K7, k1 (P7's instance) and k2 once each, counted, against their
+    twins; returns {name: (kernel, twin)}."""
     out = {}
     for name, fn, plain in (
             ("K7", column_kernels.lj_column_force,
              column_kernels.lj_column_force_reference),
-            ("k1", v3_kernels.v3_k1, v3_kernels.v3_reference)):
+            ("k1", v3_kernels.v3_k1, v3_kernels.v3_reference),
+            ("k2", v3_kernels.v3_k2,
+             lambda *a: v3_kernels.v3_reference(*a, grouped=True))):
         before = fn.launches
         got = fn(*args)
         torch.cuda.synchronize()
@@ -567,21 +572,25 @@ def _column_check(args, dtype):
 @pytest.mark.parametrize("ncells,cc", [((1, 1, 1), 16), ((2, 2, 4), 32),
                                        ((3, 3, 3), 32), ((3, 3, 4), 64)])
 def test_column_walk_any_grid(cuda, dtype, ncells, cc):
-    """K7 and k1 on the walk take any grid the JAX function takes: one
+    """K7, k1 and k2 on the walk take any grid the JAX function takes: one
     cell per dim (a row's 26 images carry its id; other rows' images count
     once per stencil entry), two (one column named by two entries with
-    other shifts), three, and cc 64 with a 40-atom cell (two row passes)."""
+    other shifts), three, and cc 64 with a 40-atom cell (two row passes;
+    k2's first design took cc <= 96 only). k2 gives k1's forces, summed
+    in another order."""
     out = _column_check(_column_grid(ncells, cc, 5, dtype, cuda), dtype)
     for _, ref in out.values():
         assert ref.abs().max().item() > 0.01  # pairs within the cutoff
+    k1, k2 = out["k1"][0], out["k2"][0]
+    _assert_close(list(k2), list(k1), dtype)
 
 
 @pytest.mark.parametrize("case", planted.CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_column_walk_cutoff_across_wrapped_faces(cuda, dtype, case):
     """A pair planted across each periodic face at r2 = cutsq (in K1's
-    frame) and one ulp either side (prof/planted.wrapped_pairs): K7 and k1
-    shift the candidate, as JAX K7 does, and take on each row the decision
+    frame) and one ulp either side (prof/planted.wrapped_pairs): K7, k1
+    and k2 shift the candidate, as JAX K7 does, and take on each row the decision
     of their twins, which form r2 alike."""
     ncells, cc = (3, 3, 3), 32
     prd = torch.full((3,), 10.2, dtype=dtype)
@@ -603,7 +612,8 @@ def test_column_walk_repeats_bit_for_bit(cuda, dtype):
     give the same bits."""
     sp = _planes(cuda, dtype)
     args = (sp.key, sp.ncells, *sp.col, sp.prd)
-    for fn in (column_kernels.lj_column_force, v3_kernels.v3_k1):
+    for fn in (column_kernels.lj_column_force, v3_kernels.v3_k1,
+               v3_kernels.v3_k2):
         first, second = fn(*args), fn(*args)
         assert all(torch.equal(a, b) for a, b in zip(first, second))
 
@@ -709,9 +719,14 @@ def test_dynslice_matches_twin(cuda, dtype, g, monkeypatch):
                                    atol=1e-6 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("shape", [zk.ZwinShape(), zk.ZwinShape(26, 64)])
+@pytest.mark.parametrize("shape", [zk.ZwinShape(), zk.ZwinShape(26, 64),
+                                   zk.ZwinShape(2, 64), zk.ZwinShape(12, 64)])
 def test_zwin_matches_twin_and_catches_planted_faults(cuda, shape,
                                                       monkeypatch):
+    """At NCOL 2 the +1 and -1 windows read one column and +-12 the column
+    itself, at NCOL 12 +-12 the column itself: each stays its own term.
+    Each output is written once by a fixed sum: two launches are
+    bit-equal, one launch a call."""
     inputs = zk.zwin_inputs(shape, device=cuda)
     ref = zk.zwin_reference(*inputs, shape=shape)
     scale = zk.zwin_reference(*inputs, shape=shape, magnitude=True)
@@ -723,8 +738,10 @@ def test_zwin_matches_twin_and_catches_planted_faults(cuda, shape,
         moved = zk.zwin_proto(*inputs[:-1], inputs[-1] + 1, shape=shape)
         wrong = zk.zwin_proto(*inputs, shape=dataclasses.replace(
             shape, offsets=(1, -1, 12, -11)))
+        again = zk.zwin_proto(*inputs, shape=shape)
     torch.cuda.synchronize()
-    assert zk.zwin_proto.launches == before + 3
+    assert zk.zwin_proto.launches == before + 4
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(bool(torch.isfinite(a).all()) for a in got)
     assert zk.max_scaled_error(got, ref, scale) <= 1e-4
     for bad in (moved, wrong):
