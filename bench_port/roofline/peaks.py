@@ -1,0 +1,82 @@
+"""Published peaks of one NVIDIA H100 SXM (data sheet, dense, at its 700 W
+limit) and the operations each kernel's work needs.
+
+Operations are counted per unordered pair within the force cutoff, each
+pair once, so that a full-stencil kernel and a Newton-half kernel are held
+to the same work: lj: displacement 3, r2 5, cutoff 1, 1/r2 1, r6 2, fpair
+4, fij 3, +f_i 3, -f_j 3. EAM: displacement, r2 and cutoff 9, clamp 2, each
+Chebyshev series 2 + 3 per coefficient (29 for rho, 28 each for a and b),
+rho +2; force fpair 4, fij 3, +f_i 3, -f_j 3. The rho sweep's fp epilogue,
+per row: clamp 2, sqrt 1, the argument 2, the Fp_s series (80
+coefficients), 2 s and the divide 2. Bytes: each input read once, each
+output written once, per atom (`kernels/<kernel>.json`).
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+
+LJ_PAIR_OPS = 25
+EAM_RHO_PAIR_OPS = 9 + 2 + (2 + 3 * 29) + 2
+EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
+EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
+
+KERNELS = Path(__file__).resolve().parent / "kernels"
+
+
+def _count(v) -> int:
+    """A count given as a number or as the name of a constant above."""
+    return int(globals()[v]) if isinstance(v, str) else int(v)
+
+
+def kernel_work(kernel: str) -> dict:
+    """{pair_ops, row_ops, bytes_per_atom: {dtype: n}} of a kernel's call,
+    from `kernels/<kernel>.json`; None when the file is not there."""
+    path = KERNELS / f"{kernel}.json"
+    if not path.exists():
+        return None
+    spec = json.loads(path.read_text())
+    return {"pair_ops": _count(spec["pair_ops"]),
+            "row_ops": _count(spec["row_ops"]),
+            "bytes_per_atom": spec["bytes_per_atom"]}
+
+
+def work_ops(kernel: str, pairs: int, atoms: int) -> int:
+    """Operations of one call of `kernel` on `pairs` pairs and `atoms`."""
+    w = kernel_work(kernel)
+    return pairs * w["pair_ops"] + atoms * w["row_ops"]
+
+
+def bound_of(pairs: int, pair_ops: int, nbytes: int, dtype: str,
+             row_ops: int = 0) -> dict:
+    """The least time of a pass of `pair_ops` operations on each of
+    `pairs` pairs and `row_ops` more, moving `nbytes`: the larger of the
+    operations over the peak of `dtype` and the bytes over the HBM rate."""
+    t_ops = (pairs * pair_ops + row_ops) / PEAK_OPS_PER_S[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return {"bound_s": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def kernel_bound(kernel: str, pairs: int, atoms: int, dtype: str) -> dict:
+    """`bound_of` one call of `kernel` on `pairs` pairs of `atoms` atoms."""
+    w = kernel_work(kernel)
+    return bound_of(pairs, w["pair_ops"], atoms * w["bytes_per_atom"][dtype],
+                    dtype, atoms * w["row_ops"])
+
+
+def kernel_share(kernel: str, traced: dict, pairs: int, atoms: int,
+                 dtype: str):
+    """Percent of the roofline one call of `kernel` reaches: its bound over
+    its device time per call in the trace. None when the trace holds no
+    call of it (a later design took it off the path)."""
+    seen = traced["kernels"].get(kernel)
+    if not seen or kernel_work(kernel) is None:
+        return None
+    per_call = seen["total_s"] / seen["calls"]
+    return 100.0 * kernel_bound(kernel, pairs, atoms, dtype)["bound_s"] / (
+        per_call)
