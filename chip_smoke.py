@@ -958,7 +958,7 @@ def deck_1m_cell(tmp: str) -> tuple:
     wall = time.perf_counter() - t0
     sim = script.sim
     n, p = sim.state.nlocal, sim.nl.params
-    loop = sim.last_loop_time
+    loop = rows[-1]["cpu"]  # the run's time to its last row (CPU keyword)
     log(f"[lj-1m-cell] deck wall {wall:.3f} s, loop {loop:.3f} s, setup "
         f"(wall - loop) {wall - loop:.3f} s; per command "
         + ", ".join(f"{k} {v:.3f} s" for k, v in
@@ -2003,10 +2003,13 @@ def main() -> int:
 
     # 4. the main path: 32k melt, 1000 steps, counted launches
     pair_kernels.lj_cell_force.launches = 0
+    t0 = time.perf_counter()
     rows = sim32.run(1000, thermo_every=100)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
     launches = pair_kernels.lj_cell_force.launches
     log(f"[lj-32k] run(1000): {launches} kernel launches, loop "
-        f"{sim32.last_loop_time:.3f} s incl. 11 thermo rows, grid "
+        f"{loop:.3f} s incl. 11 thermo rows, grid "
         f"{sim32.nl.params.ncells} x cc {sim32.nl.params.cell_cap}")
     if launches <= 0:
         raise RuntimeError("main path never launched the kernel")
@@ -2015,10 +2018,13 @@ def main() -> int:
 
     # 5. the 1M-atom deck, 200 steps
     pair_kernels.lj_cell_force.launches = 0
+    t0 = time.perf_counter()
     rows = sim1m.run(200, thermo_every=100)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
     launches_1m = pair_kernels.lj_cell_force.launches
     log(f"[lj-1m] run(200): {launches_1m} kernel launches, loop "
-        f"{sim1m.last_loop_time:.3f} s, grid {sim1m.nl.params.ncells} x cc "
+        f"{loop:.3f} s, grid {sim1m.nl.params.ncells} x cc "
         f"{sim1m.nl.params.cell_cap}")
     if launches_1m <= 0:
         raise RuntimeError("1M deck never launched the kernel")
@@ -2074,11 +2080,14 @@ def main() -> int:
         params0 = eam.nl.params
         eam_kernels.eam_cell_rho.launches = 0
         eam_kernels.eam_cell_force.launches = 0
+        t0 = time.perf_counter()
         rows = eam.run(EAM_STEPS, thermo_every=50)
+        torch.cuda.synchronize()
+        loop = time.perf_counter() - t0
         eam_launches = {"eam_cell_rho": eam_kernels.eam_cell_rho.launches,
                         "eam_cell_force": eam_kernels.eam_cell_force.launches}
     log(f"[eam-32k] run({EAM_STEPS}): launches {eam_launches}, nbuilds "
-        f"{eam.nl.nbuilds}, loop {eam.last_loop_time:.3f} s incl. "
+        f"{eam.nl.nbuilds}, loop {loop:.3f} s incl. "
         f"{len(rows)} thermo rows, grid {eam.nl.params.ncells} x cc "
         f"{eam.nl.params.cell_cap}")
     n_rho, n_force = eam_launches.values()

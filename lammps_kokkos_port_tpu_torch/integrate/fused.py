@@ -25,8 +25,10 @@ from ..core.state import State
 from ..ops import neighbor as nbr
 from ..ops import sortedforce
 from ..ops.pair_kernels import lj_cell_force
+from ..utils import trace
 
 
+@trace.spanned("pair")
 def force_planar(key, params: nbr.NeighborParams, xs: torch.Tensor,
                  prd: torch.Tensor) -> torch.Tensor:
     """[3, cap] planar positions -> [3, cap] forces via the cell kernel."""

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from ..core.state import State
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,7 @@ class ForceField:
     def max_cutoff(self) -> float:
         return self.pair.max_cutoff()
 
+    @trace.spanned("pair")
     def compute(self, state: State, nl, eflag: bool, vflag: bool):
         """Returns (f, epair, emol, virial6); epair/emol are None unless
         eflag, virial is None unless vflag."""

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.state import State
+from ..utils import trace
 from . import neighbor as nbr
 
 
@@ -72,6 +73,7 @@ def _stencil_table(p: nbr.NeighborParams, periodic) -> np.ndarray:
     return out
 
 
+@trace.spanned("neigh")
 def build_cell(state: State, p: nbr.NeighborParams,
                stencil: torch.Tensor | None = None) -> CellListDense:
     """Bin atoms into dense buckets (no host read)."""
@@ -84,6 +86,7 @@ def build_cell(state: State, p: nbr.NeighborParams,
 
 
 def rebuild_merge(state: State, old: CellListDense) -> CellListDense:
+    trace.count("neigh.rebin_passes")
     new = build_cell(state, old.params, stencil=old.stencil)
     return dataclasses.replace(new, nbuilds=old.nbuilds + 1,
                                overflow=old.overflow | new.overflow)
@@ -93,6 +96,7 @@ def tick(cl: CellListDense) -> CellListDense:
     return dataclasses.replace(cl, ago=cl.ago + 1)
 
 
+@trace.spanned("neigh")
 def needs_rebuild(state: State, cl: CellListDense) -> bool:
     """The decision of `neigh_modify every E delay D check yes/no` (ref:
     Neighbor::decide, src/neighbor.cpp:2309-2404): the cadence on the

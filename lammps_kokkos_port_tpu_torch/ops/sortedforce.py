@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.state import State
+from ..utils import trace
 from . import neighbor as nbr
 
 # padding rows carry DISTINCT position sentinels (PAD_POS + row*PAD_STEP on
@@ -225,6 +226,7 @@ def _permute(state: State, p: nbr.NeighborParams):
     return state, overflow
 
 
+@trace.spanned("neigh")
 def build(state: State, p: nbr.NeighborParams):
     """Sort the (already expanded) state; returns (state, SortedCells)."""
     state, overflow = _permute(state, p)
@@ -232,10 +234,12 @@ def build(state: State, p: nbr.NeighborParams):
                               xhold=state.x)
 
 
+@trace.spanned("neigh")
 def rebuild_state(state: State, old: SortedCells):
     """In-step rebuild: the sort-free local re-binning (atoms move <= one
     cell between rebuilds; violations raise the sticky overflow flag and
     the host replays the segment through the full-sort `build`)."""
+    trace.count("neigh.rebin_passes")
     newpos, overflow = _local_perm(state, old.params)
     state, overflow = _apply_perm(state, newpos, overflow)
     return state, SortedCells(ago=0, nbuilds=old.nbuilds + 1,
@@ -247,6 +251,7 @@ def tick(cl: SortedCells) -> SortedCells:
     return dataclasses.replace(cl, ago=cl.ago + 1)
 
 
+@trace.spanned("neigh")
 def needs_rebuild(state: State, cl: SortedCells) -> torch.Tensor:
     """The rebuild decision of `neigh_modify every E delay D check yes/no`
     (ref: Neighbor::decide, src/neighbor.cpp:2309-2404) as a 0-d bool
@@ -264,6 +269,7 @@ def needs_rebuild(state: State, cl: SortedCells) -> torch.Tensor:
     return cadence & (torch.max(d2) > half_skin_sq)
 
 
+@trace.spanned("neigh")
 def rebuild_if(state: State, cl: SortedCells, rebuild: torch.Tensor):
     """Wrap and re-bin where the 0-d device flag `rebuild` says so, with no
     host read: the counterpart of the JAX step's `lax.cond(rebuild,
@@ -272,6 +278,7 @@ def rebuild_if(state: State, cl: SortedCells, rebuild: torch.Tensor):
     unwrapped positions and the identity permutation with torch.where, and
     the identity permutation leaves the state as it is. `cl.ago` and
     `cl.nbuilds` are device tensors."""
+    trace.count("neigh.rebin_passes")
     cap = state.capacity
     valid = state.valid_mask
     x_w, image_w = state.box.wrap(state.x, state.image)

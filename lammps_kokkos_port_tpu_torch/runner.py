@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from .integrate.verlet import Integrator, list_ops, make_step_segment
 from .models.forcefield import ForceField, from_pair
 from .ops import cellforce, sortedforce
 from .ops import neighbor as nbr
+from .utils import trace
 from .utils.units import Units, get_units
 
 
@@ -70,7 +70,6 @@ class Simulation:
         self.thermo_norm: bool | None = None  # thermo_modify norm
         self.ntimestep = 0
         self._segment_runner = None
-        self.last_loop_time = 0.0
 
     # -- forces -------------------------------------------------------------
 
@@ -79,6 +78,7 @@ class Simulation:
 
     # -- setup (ref: Verlet::setup, src/verlet.cpp:93) ----------------------
 
+    @trace.spanned("setup")
     def setup(self):
         self.state = self.integrator.setup(self.state)
         cutneigh = self.forcefield.max_cutoff() + self.skin
@@ -96,9 +96,11 @@ class Simulation:
             every=self.neigh_every, delay=self.neigh_delay,
             check=self.neigh_check, cell_pad=1.12, cell_round=2)
         if self.list_mode == "sorted":
-            params = self._optimize_sorted_grid(params, cutneigh)
-            params = self._align_cell_cap(params)
-        self.nl = self._build_list(self.state, params)
+            with trace.span("setup.grid"):
+                params = self._optimize_sorted_grid(params, cutneigh)
+                params = self._align_cell_cap(params)
+        with trace.span("setup.list"):
+            self.nl = self._build_list(self.state, params)
         self._check_overflow_and_grow()
         self.presetup_forces()
 
@@ -286,60 +288,67 @@ class Simulation:
                     f"non-finite thermo at step {step_no}: {row} "
                     "(simulation unstable — lost atoms or bad dynamics)")
 
-        t0 = time.perf_counter()
-        emit(self.ntimestep)
-        done = 0
-        while done < nsteps:
-            if thermo_every > 0:
-                next_out = min(nsteps,
-                               ((done // thermo_every) + 1) * thermo_every)
-            else:
-                next_out = nsteps
-            seg = next_out - done
-            self._run_segment_retry(seg)
-            done = next_out
-            self.ntimestep += seg
+        with trace.span("run"):
             emit(self.ntimestep)
-        if self.state.x.is_cuda:
-            torch.cuda.synchronize(self.state.x.device)
-        self.last_loop_time = time.perf_counter() - t0
+            done = 0
+            while done < nsteps:
+                if thermo_every > 0:
+                    next_out = min(nsteps, ((done // thermo_every) + 1)
+                                   * thermo_every)
+                else:
+                    next_out = nsteps
+                seg = next_out - done
+                self._run_segment_retry(seg)
+                done = next_out
+                self.ntimestep += seg
+                emit(self.ntimestep)
         return rows
 
+    @trace.spanned("segment")
     def _run_segment_retry(self, seg: int, max_tries: int = 8):
         snap_state, snap_nl = self.state, self.nl
         for _ in range(max_tries):
             runner = self._get_segment_runner()
-            state, nl = runner(self.state, self.nl, seg)
-            overflow, nl = list_ops(nl).read_back(nl)  # the one host sync
+            with trace.span("segment.launch"):
+                state, nl = runner(self.state, self.nl, seg)
+            with trace.span("segment.read"):  # the one host sync
+                overflow, nl = list_ops(nl).read_back(nl)
             if not overflow:
                 self.state, self.nl = state, nl
                 return
-            # capacity overflow inside the segment: grow, rebuild from the
-            # snapshot, and re-run the whole segment with the new shapes
-            # (restore the snapshot first: the post-segment state is
-            # NaN-poisoned and growth reads self.state). The snapshot is
-            # wrapped into the box before the re-bin, as every rebuild
-            # wraps: the sorted kernels shift a candidate by whole boxes
-            # only where its cell wraps, so an atom binned across a face
-            # with an unwrapped coordinate would see its neighbours a box
-            # away.
-            cur_params = self.nl.params
-            x, image = snap_state.box.wrap(snap_state.x, snap_state.image)
-            self.state = snap_state.replace(x=x, image=image)
-            params = self._grow_params(cur_params)
-            nl = self._build_list(self.state, params)
-            # a snapshot list built at this very state (ago 0: setup, or a
-            # rebuild on the previous segment's last step) is only resized;
-            # any other snapshot gets a new build here, counted once, and
-            # the cadence (ago) and the displacement reference (xhold)
-            # restart from it, as the build returns them
-            self.nl = dataclasses.replace(
-                nl, nbuilds=int(snap_nl.nbuilds) + (int(snap_nl.ago) != 0))
-            self._check_overflow_and_grow()
+            trace.count("segment.retries")
+            with trace.span("segment.grow"):
+                # capacity overflow inside the segment: grow, rebuild
+                # from the snapshot, and re-run the whole segment with
+                # the new shapes (restore the snapshot first: the
+                # post-segment state is NaN-poisoned and growth reads
+                # self.state). The snapshot is wrapped into the box
+                # before the re-bin, as every rebuild wraps: the
+                # sorted kernels shift a candidate by whole boxes only
+                # where its cell wraps, so an atom binned across a
+                # face with an unwrapped coordinate would see its
+                # neighbours a box away.
+                cur_params = self.nl.params
+                x, image = snap_state.box.wrap(snap_state.x,
+                                               snap_state.image)
+                self.state = snap_state.replace(x=x, image=image)
+                params = self._grow_params(cur_params)
+                nl = self._build_list(self.state, params)
+                # a snapshot list built at this very state (ago 0:
+                # setup, or a rebuild on the previous segment's last
+                # step) is only resized; any other snapshot gets a new
+                # build here, counted once, and the cadence (ago) and
+                # the displacement reference (xhold) restart from it,
+                # as the build returns them
+                self.nl = dataclasses.replace(
+                    nl, nbuilds=int(snap_nl.nbuilds)
+                    + (int(snap_nl.ago) != 0))
+                self._check_overflow_and_grow()
         raise RuntimeError("neighbor overflow retry did not converge")
 
     # -- observables --------------------------------------------------------
 
+    @trace.spanned("output")
     def thermo(self) -> dict:
         """Current thermo keywords (ref: src/thermo.cpp:815-905 subset).
         All device values come to the host in one copy."""
@@ -356,7 +365,9 @@ class Simulation:
                          torch.sqrt(torch.sum(fmag * fmag)),
                          torch.max(torch.abs(fmag))]),
             ptens, st.box.lo, st.box.hi,
-        ]).double().cpu().numpy()
+        ]).double()
+        with trace.span("output.read"):
+            dev_vals = dev_vals.cpu().numpy()
         ep_v, em_v, ke_v, t_v, p_v, vol, fnorm, fmax = dev_vals[:8]
         ptens_v, lo, hi = dev_vals[8:14], dev_vals[14:17], dev_vals[17:20]
         n = st.nlocal

@@ -18,7 +18,7 @@ Ported commands:
     neigh_modify (every, delay, check), fix nve (group all), unfix,
     timestep;
   - output and run: thermo, thermo_style one/custom, thermo_modify norm,
-    reset_timestep, run;
+    reset_timestep, timer (off, loop, normal, full), run;
   - accepted no-ops, as in the JAX package: newton, processors, suffix,
     package.
 Every other command, style or keyword raises ScriptError naming it: the
@@ -30,6 +30,10 @@ it comes after a run, first pulls the live atoms back into the setup
 (`_sync_from_sim`), so the next run builds a new Simulation with the new
 setting from the current state. The JAX package keeps its first
 Simulation and ignores such commands.
+
+The `timer` default is `off`, where LAMMPS's is `normal`: the port's spans
+(utils/trace) stay off unless a deck asks for them, so that the measured
+path carries none.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from .core.lattice import create_atoms as lattice_create_atoms
 from .core.state import State, create_state
 from .core.velocity import create_velocities_geom, create_velocities_loop_all
 from .models.forcefield import ForceField
+from .utils import trace
 from .utils.device import resolve as resolve_device
 from .utils.units import UNIT_SYSTEMS, get_units
 
@@ -546,6 +551,7 @@ class LammpsScript:
                               periodic=(True, True, True),
                               dtype=torch.float64, device=self.device)
 
+    @trace.spanned("setup.atoms")
     def cmd_create_atoms(self, a):
         type_id = int(a[0])
         style = a[1]
@@ -682,6 +688,19 @@ class LammpsScript:
     def cmd_thermo(self, a):
         self.thermo_every = int(a[0])
 
+    def cmd_timer(self, a):
+        """timer off|loop|normal|full (ref: src/timer.cpp
+        Timer::modify_params): `normal` and `full` turn the spans on for
+        the runs that follow, each run then ending with the task timing
+        breakdown; `off` and `loop` turn them off."""
+        for w in a:
+            if w in ("normal", "full"):
+                trace.enable()
+            elif w in ("off", "loop"):
+                trace.disable()
+            else:
+                raise _not_ported(f"timer keyword {w}")
+
     def cmd_thermo_style(self, a):
         """thermo_style one | custom <keywords> (ref: src/thermo.cpp)."""
         if a[0] == "one":
@@ -795,28 +814,27 @@ class LammpsScript:
         self._emit(" ".join(
             (self._THERMO_COLS[c][0] if c in self._THERMO_COLS else c)
             for c in self._thermo_columns()))
+        spans0 = trace.snapshot()["spans"] if trace.ON else None
         t0 = time.perf_counter()
         self._first_step = sim.ntimestep
         self._thermo_prev = (sim.ntimestep, 0.0)
         self._run_end = sim.ntimestep + nsteps
-        rows = [self._emit_thermo_row(sim, sim.ntimestep, t0)]
-
-        done = 0
-        while done < nsteps:
-            nxt = nsteps
-            if self.thermo_every > 0:
-                nxt = min(nxt, ((done // self.thermo_every) + 1)
-                          * self.thermo_every)
-            seg = nxt - done
-            sim._run_segment_retry(seg)
-            sim.ntimestep += seg
-            done = nxt
-            rows.append(self._emit_thermo_row(sim, sim.ntimestep, t0))
-
-        if sim.state.x.is_cuda:
-            torch.cuda.synchronize(sim.state.x.device)
+        with trace.span("run"):
+            rows = [self._emit_thermo_row(sim, sim.ntimestep, t0)]
+            done = 0
+            while done < nsteps:
+                nxt = nsteps
+                if self.thermo_every > 0:
+                    nxt = min(nxt, ((done // self.thermo_every) + 1)
+                              * self.thermo_every)
+                seg = nxt - done
+                sim._run_segment_retry(seg)
+                sim.ntimestep += seg
+                done = nxt
+                rows.append(self._emit_thermo_row(sim, sim.ntimestep, t0))
+            if sim.state.x.is_cuda:
+                torch.cuda.synchronize(sim.state.x.device)
         loop = time.perf_counter() - t0
-        sim.last_loop_time = loop
         n = rows[-1]["natoms"]
         rate = nsteps / loop if loop > 0 else float("inf")
         self._emit(
@@ -829,8 +847,43 @@ class LammpsScript:
         # mode of the port (or of the JAX package) counts dangerous builds
         self._emit(f"Neighbor list builds = {int(sim.nl.nbuilds)}  "
                    "Dangerous builds = 0")
+        if spans0 is not None:
+            self._emit_timer_breakdown(spans0, trace.snapshot()["spans"],
+                                       loop)
         self.ntimestep = sim.ntimestep
         return rows
+
+    def _emit_timer_breakdown(self, before: dict, after: dict, loop: float):
+        """LAMMPS's task timing breakdown (ref: src/finish.cpp:127-460)
+        from the spans of one run (`before`, `after`: `trace.snapshot()`'s
+        span aggregates around it). Pair and Neigh are the `pair` and
+        `neigh` spans, Output the thermo rows' own time (`output` less its
+        pair pass and read), Sync the host's waits on the device
+        (`segment.read`, `output.read`), Other the rest of the loop."""
+
+        def spent(name, key="total_s"):
+            return (after.get(name, {}).get(key, 0.0)
+                    - before.get(name, {}).get(key, 0.0))
+
+        rows = [("Pair", spent("pair")), ("Neigh", spent("neigh")),
+                ("Output", spent("output", "self_s")),
+                ("Sync", spent("segment.read") + spent("output.read"))]
+        other = loop - sum(t for _, t in rows)
+
+        def pct(t):
+            return 100.0 * t / loop if loop > 0 else 0.0
+
+        self._emit("")
+        self._emit("MPI task timing breakdown (host times: the device runs "
+                   "asynchronously, and Sync holds the waits for it):")
+        self._emit("Section |  min time  |  avg time  |  max time  |%varavg|"
+                   " %total")
+        self._emit("-" * 63)
+        for name, t in rows:
+            self._emit(f"{name:<8}|{t:< 12.5g}|{t:< 12.5g}|{t:< 12.5g}|"
+                       f"{0.0:6.1f} |{pct(t):6.2f}")
+        self._emit(f"{'Other':<8}|{'':12}|{other:< 12.5g}|{'':12}|{'':7}|"
+                   f"{pct(other):6.2f}")
 
     def _build_simulation(self):
         from .runner import Simulation
@@ -840,12 +893,13 @@ class LammpsScript:
         if self.box is None or not self.positions:
             raise ScriptError("no system defined before run")
 
-        state = create_state(
-            np.asarray(self.positions), self.box,
-            types=np.asarray(self.types, dtype=np.int32),
-            velocities=self.velocities, masses=self._mass_table(),
-            units_name=self.units_name, dtype=self.dtype,
-            device=self.device)
+        with trace.span("setup.atoms"):
+            state = create_state(
+                np.asarray(self.positions), self.box,
+                types=np.asarray(self.types, dtype=np.int32),
+                velocities=self.velocities, masses=self._mass_table(),
+                units_name=self.units_name, dtype=self.dtype,
+                device=self.device)
         sim = Simulation(
             state, self._build_forcefield(), dt=self.dt, skin=self.skin,
             neigh_every=self.neigh_every, neigh_delay=self.neigh_delay,
