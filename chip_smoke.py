@@ -19,19 +19,26 @@ checks them on the card:
      run, energy drift and the slope-timed step rate;
   5. the 1M-atom deck (cells=63), f32, 200 steps, same checks, and a
      torch.profiler split of one segment (the kernel, re-binning, rest);
-  6. the two EAM kernels against their plain versions at the eam-32k grid
+  6. the EAM kernels against their plain versions at the eam-32k grid
      and at the 1M EAM grid (cells 63), f32 and f64, positions jittered by
      a seeded +-0.08 A: the rho sweep with its fp = F'(rho) epilogue (rho
      against the plain rho, fp against embedding_fp of it) and without it,
-     and the force sweep; their launch shapes;
+     and the force sweep; the thermo rows' tally instances against their
+     twins: rho, fp and e of the rho tally, the forces and the seven
+     planes of the force tally (the f32 virial planes and sums as accurate
+     as the f32 twin against an f64 evaluation, `check_as_accurate`), pe
+     and virial summed over the valid rows, and the tally's forces against
+     the step instance's; each kernel's device time, plain time and bound;
+     the two sweeps' launch shapes;
   7. the EAM slice on the card against the same slice on the CPU (plain
      versions), cells 6, f64, 10 steps;
   8. the EAM main path: the 32k-atom bench/in.eam deck in f32, setup() +
      run(200, thermo_every=50) (every 1 delay 5 check yes), each EAM
      kernel launched once per force step (one fused rho+fp launch, one
-     force launch), nbuilds > 1, energy drift, the slope-timed step rate,
-     and a torch.profiler split of one segment, in which embedding_fp must
-     not be called; the same deck through the earlier chain (rho sweep,
+     force launch) and each tally instance once per thermo row, nbuilds
+     > 1, energy drift, the slope-timed step rate, and a torch.profiler
+     split of one segment, in which embedding_fp must not be called; the
+     same deck through the earlier chain (rho sweep,
      embedding_fp in eager PyTorch, force sweep) for device ops, device
      time and host time per step before and after;
   9. the input-deck slice: bench/in.lj with -var x 4 -var y 2 -var z 4
@@ -145,7 +152,12 @@ CELL_REPLACES = "lammps_kokkos_port_tpu/ops/pallas_pair.py:117"  # K6
 EAM_REPLACES = {  # K4, K5
     "eam_cell_rho": "lammps_kokkos_port_tpu/ops/pallas_eam.py:200",
     "eam_cell_force": "lammps_kokkos_port_tpu/ops/pallas_eam.py:219",
+    # the tally instances: the energy/virial pass, which the JAX package
+    # left to XLA (no pallas_call)
+    "eam_cell_rho_tally": "lammps_kokkos_port_tpu/ops/eamdense.py:143",
+    "eam_cell_force_tally": "lammps_kokkos_port_tpu/ops/eamdense.py:143",
 }
+EAM_KERNELS = tuple(EAM_REPLACES)
 COLUMN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_full.cu"
 HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_plane_half.cu"
 ABLATE_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_ablate.cu"
@@ -196,12 +208,20 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 # clamp 2, each Clenshaw series 2 + 3 per coefficient (29 for rho, 28 each
 # for a and b), rho +2; force fpair 4, fij 3, +f_i 3, -f_j 3. The rho
 # sweep's fp epilogue, per valid row: clamp 2, sqrt 1, the argument 2, the
-# Fp_s series (80 coefficients), 2 s and the divide 2.
+# Fp_s series (80 coefficients), 2 s and the divide 2. The tally instances:
+# the rho tally's embedding energy per valid row, the F series (81
+# coefficients, on the fp epilogue's argument) and the linear extension 3;
+# the force tally per pair, the phi series (29 coefficients) and its sum 1,
+# and the six virial products fpair dx_a dx_b with their sums, 3 each; per
+# valid row, the halving of the seven planes and e's add.
 LJ_PAIR_OPS = 25
 LJ_FWD_PAIR_OPS = 22
 EAM_RHO_PAIR_OPS = 9 + 2 + (2 + 3 * 29) + 2
 EAM_FORCE_PAIR_OPS = 9 + 2 + 2 * (2 + 3 * 28) + 4 + 9
 EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
+EAM_E_ROW_OPS = (2 + 3 * 81) + 3
+EAM_FORCE_TALLY_PAIR_OPS = EAM_FORCE_PAIR_OPS + (2 + 3 * 29) + 1 + 6 * 3
+EAM_TALLY_ROW_OPS = 7 + 1
 # the kernels redesigned for Hopper: on the shared candidate walk
 # (csrc/cell_walk.cuh), and the P9 and P4 pair ablations with more rows in
 # flight (lj_ablate, whose line's times are pair_only's, and
@@ -416,6 +436,27 @@ def check_close(label: str, got, ref, rtol: float) -> float:
     return err.max().item()
 
 
+def check_as_accurate(label: str, got, twin, exact, rel: float) -> float:
+    """`got` within twice the plain twin's deviation from `exact` (the same
+    inputs evaluated in f64) plus `rel` of max|exact|: as accurate as the
+    plain version in the same type, where the values are sums of terms
+    that cancel (the f32 virial). Raises otherwise; returns the max abs
+    error against `exact`."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: kernel output is not finite")
+    twin_err = (twin.double() - exact).abs().max().item()
+    allowed = 2 * twin_err + rel * exact.abs().max().item()
+    worst = (got.double() - exact).abs().max().item()
+    if worst > allowed:
+        raise RuntimeError(f"{label}: max abs err against f64 {worst:.3e} > "
+                           f"{allowed:.3e} (twice the twin's {twin_err:.3e}"
+                           f" + {rel:g} of the largest value)")
+    return worst
+
+
 def kernel_vs_plain(sim, dtype, label: str) -> dict:
     """Phase 2 on one grid and dtype."""
     import torch
@@ -561,9 +602,13 @@ def eam_kernels_vs_plain(sim, dtype, label: str, plain_reps: int = 5) -> dict:
     """Phase 6 on one grid and dtype: the fused rho sweep (rho against the
     plain rho, fp = F'(rho) against embedding_fp of the plain rho), the
     rho sweep without its epilogue, and the force sweep fed the fp of the
-    plain rho, each against its plain version on the same inputs. Returns
-    {kernel name: numbers} for the kernel line (eam_cell_rho: the fused
-    launch, the one the main path makes)."""
+    plain rho, each against its plain version on the same inputs; the
+    tally instances (thermo rows) against their twins on the same inputs:
+    the rho tally's rho, fp and e, and the force tally (fed the twin's fp
+    and e) with its forces and seven planes, and their sums over the valid
+    rows (`eam_kernels.tally_sums`). Returns {kernel name: numbers} for the
+    kernel line (eam_cell_rho: the fused launch, the one the main path
+    makes)."""
     import torch
 
     from lammps_kokkos_port_tpu_torch.ops import eam_kernels as ek
@@ -602,24 +647,92 @@ def eam_kernels_vs_plain(sim, dtype, label: str, plain_reps: int = 5) -> dict:
     errs["eam_cell_force"] = check_close(
         f"{label} eam_cell_force", ek.eam_cell_force(*f_args),
         ek.eam_cell_force_reference(*f_args), rtol)
-    dev = device_ms({"eam_cell_rho": lambda: ek.eam_cell_rho_fp(*fused_args),
-                     "eam_cell_force": lambda: ek.eam_cell_force(*f_args)})
-    plain = {"eam_cell_rho": cuda_ms(
-                 lambda: ek.eam_cell_rho_fp_reference(*fused_args),
-                 reps=plain_reps, warmup=1),
-             "eam_cell_force": cuda_ms(
-                 lambda: ek.eam_cell_force_reference(*f_args),
-                 reps=plain_reps, warmup=1)}
+
+    # the tally instances
+    rt_args = fused_args[:2] + (ek.embed_tab(tabs),) + fused_args[2:]
+    rho_t, fp_t, e_t = ek.eam_cell_rho_tally_reference(*rt_args)
+    got = ek.eam_cell_rho_tally(*rt_args)
+    errs["eam_cell_rho_tally"] = max(
+        check_close(f"{label} eam_cell_rho_tally {part}", a, b, rtol)
+        for part, a, b in zip(("rho", "fp", "e"), got, (rho_t, fp_t, e_t)))
+    ft_args = (ftab, ek.phi_tab(tabs), p.ncells, g[0], g[1], g[2],
+               fp_t.contiguous(), e_t.contiguous(), prd)
+    f_t, tally = ek.eam_cell_force_tally(*ft_args)
+    f_ref, tally_ref = ek.eam_cell_force_tally_reference(*ft_args)
+    errs["eam_cell_force_tally"] = max(
+        check_close(f"{label} eam_cell_force_tally forces", f_t, f_ref, rtol),
+        check_close(f"{label} eam_cell_force_tally pe plane", tally[0],
+                    tally_ref[0], rtol))
+    sums = ek.tally_sums(tally, st.valid_mask)
+    sums_ref = ek.tally_sums(tally_ref, st.valid_mask)
+    sum_rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    pe_gap = abs(sums[0].item() / sums_ref[0].item() - 1)
+    if pe_gap > sum_rtol:
+        raise RuntimeError(f"{label} tally pe {sums[0].item():.17g} against "
+                           f"the twin's {sums_ref[0].item():.17g}: rel "
+                           f"{pe_gap:.3e} > {sum_rtol:g}")
+    if dtype == torch.float64:
+        vir_err = check_close(f"{label} eam_cell_force_tally virial planes",
+                              tally[1:], tally_ref[1:], rtol)
+        check_close(f"{label} tally virial sums", sums[1:], sums_ref[1:],
+                    sum_rtol)
+    else:
+        # the f32 virial's pair terms cancel: held to an f64 evaluation of
+        # the same inputs, as accurate as the f32 twin
+        exact = ek.eam_cell_force_tally_reference(
+            *ft_args[:3], *(a.double() for a in ft_args[3:]))[1]
+        vir_err = check_as_accurate(
+            f"{label} eam_cell_force_tally virial planes", tally[1:],
+            tally_ref[1:], exact[1:], 1e-4)
+        check_as_accurate(f"{label} tally virial sums", sums[1:],
+                          sums_ref[1:],
+                          ek.tally_sums(exact, st.valid_mask)[1:], 1e-5)
+        del exact
+    # the tally launch's forces are the step instance's (the same walk and
+    # series, scheduled apart by the compiler): a few ulps
+    step_apart = check_close(
+        f"{label} eam_cell_force_tally forces vs eam_cell_force", f_t,
+        ek.eam_cell_force(*f_args[:5], fp_t.contiguous(), prd),
+        8 * torch.finfo(dtype).eps)
+    log(f"[tally] {label}: pe {sums[0].item():.17g} (twin "
+        f"{sums_ref[0].item():.17g}, rel {pe_gap:.3e}); virial "
+        f"{[round(v, 6) for v in sums[1:].tolist()]} (twin max abs apart "
+        f"{(sums[1:] - sums_ref[1:]).abs().max().item():.3e}); planes' max "
+        f"abs err {vir_err:.3e}; forces vs the step instance's max abs "
+        f"{step_apart:.3e}")
+
+    dev = device_ms({
+        "eam_cell_rho": lambda: ek.eam_cell_rho_fp(*fused_args),
+        "eam_cell_force": lambda: ek.eam_cell_force(*f_args),
+        "eam_cell_rho_tally": lambda: ek.eam_cell_rho_tally(*rt_args),
+        "eam_cell_force_tally": lambda: ek.eam_cell_force_tally(*ft_args)})
+    plain = {name: cuda_ms(fn, reps=plain_reps, warmup=1) for name, fn in (
+        ("eam_cell_rho",
+         lambda: ek.eam_cell_rho_fp_reference(*fused_args)),
+        ("eam_cell_force", lambda: ek.eam_cell_force_reference(*f_args)),
+        ("eam_cell_rho_tally",
+         lambda: ek.eam_cell_rho_tally_reference(*rt_args)),
+        ("eam_cell_force_tally",
+         lambda: ek.eam_cell_force_tally_reference(*ft_args)))}
     rows = ncell * cc
+    nvalid = int(st.valid_mask.sum())
     pairs = grid_pairs(p.ncells, g[0], g[1], g[2], prd, cutsq)
     item = g.element_size()
     bounds = {"eam_cell_rho": bound_of(
                   pairs, EAM_RHO_PAIR_OPS, rows * (5 * item + 1), dtype,
-                  row_ops=int(st.valid_mask.sum()) * EAM_FP_ROW_OPS),
+                  row_ops=nvalid * EAM_FP_ROW_OPS),
               "eam_cell_force": bound_of(pairs, EAM_FORCE_PAIR_OPS,
-                                         rows * 7 * item, dtype)}
+                                         rows * 7 * item, dtype),
+              # reads x, y, z and valid; writes rho, fp and e
+              "eam_cell_rho_tally": bound_of(
+                  pairs, EAM_RHO_PAIR_OPS, rows * (6 * item + 1), dtype,
+                  row_ops=nvalid * (EAM_FP_ROW_OPS + EAM_E_ROW_OPS)),
+              # reads x, y, z, fp and e; writes 3 forces and 7 planes
+              "eam_cell_force_tally": bound_of(
+                  pairs, EAM_FORCE_TALLY_PAIR_OPS, rows * 15 * item, dtype,
+                  row_ops=nvalid * EAM_TALLY_ROW_OPS)}
     out = {}
-    for name in ("eam_cell_rho", "eam_cell_force"):
+    for name in EAM_KERNELS:
         b = bounds[name]
         extra = (f" (fp: max abs err {fp_err:.3e}, max|fp| "
                  f"{fp_ref.abs().max().item():.6g})"
@@ -632,6 +745,7 @@ def eam_kernels_vs_plain(sim, dtype, label: str, plain_reps: int = 5) -> dict:
         out[name] = {"max_abs_err": errs[name], "ms": dev[name],
                      "device_ms": dev[name], "plain_ms": plain[name], **b}
     out["eam_cell_rho"]["fp_max_abs_err"] = fp_err
+    out["eam_cell_force_tally"]["virial_max_abs_err"] = vir_err
     return out
 
 
@@ -2078,25 +2192,30 @@ def main() -> int:
 
         # 8. the EAM main path: counted launches over the run
         params0 = eam.nl.params
-        eam_kernels.eam_cell_rho.launches = 0
-        eam_kernels.eam_cell_force.launches = 0
+        for name in EAM_KERNELS:
+            getattr(eam_kernels, name).launches = 0
         t0 = time.perf_counter()
         rows = eam.run(EAM_STEPS, thermo_every=50)
         torch.cuda.synchronize()
         loop = time.perf_counter() - t0
-        eam_launches = {"eam_cell_rho": eam_kernels.eam_cell_rho.launches,
-                        "eam_cell_force": eam_kernels.eam_cell_force.launches}
+        eam_launches = {name: getattr(eam_kernels, name).launches
+                        for name in EAM_KERNELS}
     log(f"[eam-32k] run({EAM_STEPS}): launches {eam_launches}, nbuilds "
         f"{eam.nl.nbuilds}, loop {loop:.3f} s incl. "
         f"{len(rows)} thermo rows, grid {eam.nl.params.ncells} x cc "
         f"{eam.nl.params.cell_cap}")
-    n_rho, n_force = eam_launches.values()
+    n_rho, n_force, n_rho_tally, n_force_tally = eam_launches.values()
     # one launch of each per force step; an overflow retry (the grid grew)
     # re-runs a segment's steps
     if n_rho != n_force or n_rho < EAM_STEPS or (
             n_rho != EAM_STEPS and eam.nl.params == params0):
         raise RuntimeError(f"EAM kernels not launched once per force step: "
                            f"{eam_launches} over {EAM_STEPS} steps")
+    # one launch of each tally instance per thermo row (the row's energy
+    # and virial; no grid-roll pass)
+    if not n_rho_tally == n_force_tally == len(rows):
+        raise RuntimeError(f"EAM tally kernels not launched once per thermo "
+                           f"row: {eam_launches} over {len(rows)} rows")
     if eam.nl.nbuilds <= 1:
         raise RuntimeError("EAM run made no distance-checked rebuild")
     check_run(eam, rows, "eam-32k", bound=EAM_DRIFT_BOUND)
@@ -2201,7 +2320,7 @@ def main() -> int:
          "launches": launches, **main_cell},
         *({"name": name, "route": "cuda", "source": EAM_SOURCE,
            "replaces": EAM_REPLACES[name], "launches": eam_launches[name],
-           **eam_cells[name]} for name in ("eam_cell_rho", "eam_cell_force")),
+           **eam_cells[name]} for name in EAM_KERNELS),
         {"name": "lj_cell_dense", "route": "cuda", "source": CELL_SOURCE,
          "replaces": CELL_REPLACES, "launches": cell_launches, **main_dense},
         *({"name": name, "route": "cuda", "source": source,
@@ -2222,7 +2341,7 @@ def main() -> int:
         ("lj_cell_force", "lj-32k", launches / 1000, main_cell),
         ("lj_cell_force", "lj-1m", launches_1m / 200, main_cell_1m),
         *((name, "eam-32k", eam_launches[name] / EAM_STEPS, eam_cells[name])
-          for name in ("eam_cell_rho", "eam_cell_force")),
+          for name in EAM_KERNELS),
         ("lj_cell_dense", "lj-1m-cell", cell_launches / DECK_STEPS,
          main_dense)])
     print(json.dumps({"kernels": kernels}))

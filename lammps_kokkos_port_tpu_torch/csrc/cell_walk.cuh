@@ -58,8 +58,9 @@
 // two bodies):
 //   static constexpr int kAcc;     accumulators per row (3: a force; 1)
 //   static constexpr int kPairs;   pairs an iteration of pass 2 (1 or 2)
-//   T term(const Cand<T>& own, const Cand<T>& c, T r2);  the pair's term
-//   static T part(const T (&d)[3], T term, int a);  its share of acc[a]
+//   E term(const Cand<T>& own, const Cand<T>& c, T r2);  the pair's term
+//       (E is T, or a struct of several values that part reads)
+//   static T part(const T (&d)[3], E term, int a);  its share of acc[a]
 //       (d = own - c)
 
 #pragma once
@@ -492,7 +493,7 @@ __device__ __forceinline__ void pass_pairs(const G& geo, const B& body,
       m &= m - 1;
       T d[3];
       const T r = geo.dist(own, c, d[0], d[1], d[2]);
-      const T f = body.term(own, c, r);
+      const auto f = body.term(own, c, r);
 #pragma unroll
       for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
       if constexpr (R::kOn) react.template pair<B>(sm, s1, d, f);
@@ -512,7 +513,7 @@ __device__ __forceinline__ void pass_pairs(const G& geo, const B& body,
       T d1[3], d2[3];
       const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
       const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
-      const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+      const auto f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
 #pragma unroll
       for (int a = 0; a < B::kAcc; ++a) {
         acc[a] += B::part(d1, f1, a);
@@ -556,7 +557,7 @@ __device__ __forceinline__ void pass_pairs_grouped(const G& geo, const B& body,
     T d1[3], d2[3];
     const T r1 = geo.dist(own, c1, d1[0], d1[1], d1[2]);
     const T r2 = geo.dist(own, c2, d2[0], d2[1], d2[2]);
-    const T f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
+    const auto f1 = body.term(own, c1, r1), f2 = body.term(own, c2, r2);
     if (t0 + g < groups.next) {
 #pragma unroll
       for (int a = 0; a < B::kAcc; ++a) {
@@ -604,7 +605,7 @@ __device__ __forceinline__ void batch_passes(const G& geo, const B& body,
         const T r2 = geo.dist(own, c, dx, dy, dz);
         if (r2 < cutsq && !(self >> j & 1u) && geo.other(own, c)) {
           const T d[3] = {dx, dy, dz};
-          const T f = body.term(own, c, r2);
+          const auto f = body.term(own, c, r2);
 #pragma unroll
           for (int a = 0; a < B::kAcc; ++a) acc[a] += B::part(d, f, a);
         }

@@ -56,6 +56,24 @@
 // r2 is bit-identical to the plain PyTorch versions' (the same rounded
 // operations), so kernel and twin make the same cutoff decisions; the
 // series and the sums differ only in rounding and order.
+//
+// Tally instances (thermo rows: energy and virial; no TPU kernel, the JAX
+// package left the energy pass to XLA's grid-roll path, which the port ran
+// in plain PyTorch until these): two more instances of the same walks,
+// under their own kernel names, so that the step's instances keep their
+// registers, their SASS and their names (by-name readers of the step's
+// kernels see only the step's calls).
+//   eam_cell_rho_tally_kernel: the rho sweep (RhoBody); its epilogue also
+//      writes each valid row's embedding energy F(rho) (the 81-term F
+//      series in s, extended linearly with slope fp above rho_hi, as
+//      ops/eamdense.embedding_energy), 0 on the other rows;
+//   eam_cell_force_tally_kernel: the force sweep with the phi series (29
+//      terms) as a third chain beside a and b (ForceTallyBody); each row
+//      sums seven more values and writes them halved, since the 27-cell
+//      stencil sees every pair from both rows: pe_i = e_i + 1/2 sum_j
+//      phi(u), and the virial 1/2 sum_j fpair dx_a dx_b (xx, yy, zz, xy,
+//      xz, yz), planes of one [7, rows] buffer. The wrapper sums the
+//      planes over rows in float64 (no atomics: deterministic).
 
 #include "sorted_grid.cuh"
 
@@ -66,6 +84,8 @@ using cell_walk::Cand;
 constexpr int NG = 29;   // g: degree 28
 constexpr int NAB = 28;  // a, b: derivative series of degree-28 fits
 constexpr int NFP = 80;  // Fp_s: derivative series of the degree-80 F fit
+constexpr int NF = 81;   // F: the degree-80 embedding fit (tally only)
+constexpr int NPHI = 29; // phi: degree 28 (tally only)
 
 // x clamped to [lo, hi], mapped to t in [-1, 1]: t = (2x - shift) * scale
 template <typename T> struct Domain {
@@ -89,6 +109,19 @@ template <typename T> struct ForceParams {
   Domain<T> u;
   T cutsq;
 };
+
+// the tally instances' constants: the step's, then the energy series
+template <typename T> struct RhoTallyParams {
+  RhoParams<T> r;
+  T F[NF];
+};
+template <typename T> struct ForceTallyParams {
+  ForceParams<T> f;
+  T phi[NPHI];
+};
+static_assert(sizeof(RhoTallyParams<double>) <= 2048,
+              "the rho tally's coefficients stay under 2 KB of the 4 KB of "
+              "kernel parameters");
 
 template <typename T>
 __device__ __forceinline__ T cheb_arg(T x, const Domain<T>& d) {
@@ -154,12 +187,74 @@ template <typename T> struct ForceBody {
   }
 };
 
+// a pair's two values in the tally sweep
+template <typename T> struct TallyTerm {
+  T fpair, phi;
+};
+
+// the force tally body: ForceBody's a and b series with phi as a third
+// independent chain; acc 0-2 the force, 3 sum phi, 4-9 sum fpair dx_a dx_b
+// (xx, yy, zz, xy, xz, yz)
+template <typename T> struct ForceTallyBody {
+  static constexpr int kAcc = 10;
+  static constexpr int kPairs = 1;
+  const ForceTallyParams<T>* p;
+  __device__ TallyTerm<T> term(const Cand<T>& own, const Cand<T>& c,
+                               T r2) const {
+    const ForceParams<T>& q = p->f;
+    const T t = cheb_arg(r2, q.u);
+    const T t2 = t + t;
+    static_assert(NPHI == NAB + 1, "phi has one term more than a and b");
+    T a1 = T(0), a2 = T(0), b1 = T(0), b2 = T(0);
+    T e1 = p->phi[NPHI - 1], e2 = T(0);
+#pragma unroll
+    for (int k = NAB - 1; k >= 1; --k) {
+      const T a0 = t2 * a1 - a2 + q.a[k];
+      const T b0 = t2 * b1 - b2 + q.b[k];
+      const T e0 = t2 * e1 - e2 + p->phi[k];
+      a2 = a1;
+      a1 = a0;
+      b2 = b1;
+      b1 = b0;
+      e2 = e1;
+      e1 = e0;
+    }
+    const T a = t * a1 - a2 + q.a[0];
+    const T b = t * b1 - b2 + q.b[0];
+    return {-((own.w + c.w) * a + b), t * e1 - e2 + p->phi[0]};
+  }
+  static __device__ T part(const T (&d)[3], const TallyTerm<T>& e, int a) {
+    switch (a) {
+      case 3: return e.phi;
+      case 4: return d[0] * e.fpair * d[0];
+      case 5: return d[1] * e.fpair * d[1];
+      case 6: return d[2] * e.fpair * d[2];
+      case 7: return d[0] * e.fpair * d[1];
+      case 8: return d[0] * e.fpair * d[2];
+      case 9: return d[1] * e.fpair * d[2];
+      default: return d[a] * e.fpair;
+    }
+  }
+};
+
 // F'(rho) through the embedding fit in s = sqrt(rho), as embedding_fp
 template <typename T>
 __device__ __forceinline__ T embed_fp(T rho, const RhoParams<T>& p) {
   const T r = rho < p.rho_lo ? p.rho_lo : (rho > p.rho_hi ? p.rho_hi : rho);
   const T s = sqrt(r);
   return clenshaw(p.fp, (T(2) * s - p.s.shift) * p.s.scale) / (T(2) * s);
+}
+
+// F(rho) through the embedding fit in s = sqrt(rho), extended linearly
+// with slope fp above rho_hi, as embedding_energy
+template <typename T>
+__device__ __forceinline__ T embed_energy(T rho, T fp,
+                                          const RhoTallyParams<T>& p) {
+  const RhoParams<T>& q = p.r;
+  const T r = rho < q.rho_lo ? q.rho_lo : (rho > q.rho_hi ? q.rho_hi : rho);
+  const T s = sqrt(r);
+  const T e = clenshaw(p.F, (T(2) * s - q.s.shift) * q.s.scale);
+  return rho > q.rho_hi ? e + fp * (rho - q.rho_hi) : e;
 }
 
 template <typename T>
@@ -193,6 +288,52 @@ __global__ void CELL_WALK_BOUNDS eam_cell_force_kernel(
       });
 }
 
+// the rho sweep with rho, fp and the embedding energy e in its epilogue
+// (fp and e 0 where `valid` is not set)
+template <typename T>
+__global__ void CELL_WALK_BOUNDS eam_cell_rho_tally_kernel(
+    const T* __restrict__ gx, const T* __restrict__ gy,
+    const T* __restrict__ gz, const T* __restrict__ prd,
+    const unsigned char* __restrict__ valid, T* __restrict__ rho,
+    T* __restrict__ fp, T* __restrict__ e, int nx, int ny, int nz, int cc,
+    const __grid_constant__ RhoTallyParams<T> p) {
+  sorted_grid::walk_grid<sorted_grid::SortedGrid<T, 3>>(
+      {gx, gy, gz, nullptr}, prd, nx, ny, nz, cc, p.r.cutsq,
+      RhoBody<T>{&p.r}, [&](int row, const T (&acc)[1]) {
+        rho[row] = acc[0];
+        T f = T(0), en = T(0);
+        if (valid[row]) {
+          f = embed_fp(acc[0], p.r);
+          en = embed_energy(acc[0], f, p);
+        }
+        fp[row] = f;
+        e[row] = en;
+      });
+}
+
+// the force sweep with each row's tallies: tally[k * rows + row], k = 0
+// pe (ge + 1/2 sum phi), 1-6 the virial's halves
+template <typename T>
+__global__ void CELL_WALK_BOUNDS eam_cell_force_tally_kernel(
+    const T* __restrict__ gx, const T* __restrict__ gy,
+    const T* __restrict__ gz, const T* __restrict__ gfp,
+    const T* __restrict__ ge, const T* __restrict__ prd, T* __restrict__ fx,
+    T* __restrict__ fy, T* __restrict__ fz, T* __restrict__ tally, int nx,
+    int ny, int nz, int cc, const __grid_constant__ ForceTallyParams<T> p) {
+  const long long rows = static_cast<long long>(nx) * ny * nz * cc;
+  sorted_grid::walk_grid<sorted_grid::SortedGrid<T, 4>>(
+      {gx, gy, gz, gfp}, prd, nx, ny, nz, cc, p.f.cutsq,
+      ForceTallyBody<T>{&p}, [=](int row, const T (&acc)[10]) {
+        fx[row] = acc[0];
+        fy[row] = acc[1];
+        fz[row] = acc[2];
+        tally[row] = ge[row] + T(0.5) * acc[3];
+#pragma unroll
+        for (int k = 1; k < 7; ++k)
+          tally[k * rows + row] = T(0.5) * acc[3 + k];
+      });
+}
+
 template <typename T>
 Domain<T> domain(double lo, double hi) {
   // the same constants _clenshaw_static derives in Python floats
@@ -200,39 +341,26 @@ Domain<T> domain(double lo, double hi) {
           static_cast<T>(1.0 / (hi - lo))};
 }
 
+// the rho sweep's constants (the Fp_s series only where fpc is not null)
 template <typename T>
-int launch_rho(const void* gx, const void* gy, const void* gz,
-               const void* prd, const void* valid, void* rho, void* fp,
-               int nx, int ny, int nz, int cc, const double* g, double u_lo,
-               double u_hi, double cutsq, const double* fpc, double rho_lo,
-               double rho_hi, double s_lo, double s_hi, void* stream) {
+RhoParams<T> rho_params(const double* g, double u_lo, double u_hi,
+                        double cutsq, const double* fpc, double rho_lo,
+                        double rho_hi, double s_lo, double s_hi) {
   RhoParams<T> p = {};
   for (int k = 0; k < NG; ++k) p.g[k] = static_cast<T>(g[k]);
-  if (fp != nullptr)
+  if (fpc != nullptr)
     for (int k = 0; k < NFP; ++k) p.fp[k] = static_cast<T>(fpc[k]);
   p.u = domain<T>(u_lo, u_hi);
   p.s = domain<T>(s_lo, s_hi);
   p.rho_lo = static_cast<T>(rho_lo);
   p.rho_hi = static_cast<T>(rho_hi);
   p.cutsq = static_cast<T>(cutsq);
-  const cell_walk::Launch L =
-      cell_walk::launch_shape<T, sorted_grid::SortedGrid<T, 3>>(nx * ny *
-                                                                nz);
-  eam_cell_rho_kernel<T><<<L.grid, L.block, L.smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(gx), static_cast<const T*>(gy),
-      static_cast<const T*>(gz), static_cast<const T*>(prd),
-      static_cast<const unsigned char*>(valid), static_cast<T*>(rho),
-      static_cast<T*>(fp), nx, ny, nz, cc, p);
-  return static_cast<int>(cudaGetLastError());
+  return p;
 }
 
 template <typename T>
-int launch_force(const void* gx, const void* gy, const void* gz,
-                 const void* gfp, const void* prd, void* fx, void* fy,
-                 void* fz, int nx, int ny, int nz, int cc, const double* a,
-                 const double* b, double u_lo, double u_hi, double cutsq,
-                 void* stream) {
+ForceParams<T> force_params(const double* a, const double* b, double u_lo,
+                            double u_hi, double cutsq) {
   ForceParams<T> p;
   for (int k = 0; k < NAB; ++k) {
     p.a[k] = static_cast<T>(a[k]);
@@ -240,15 +368,74 @@ int launch_force(const void* gx, const void* gy, const void* gz,
   }
   p.u = domain<T>(u_lo, u_hi);
   p.cutsq = static_cast<T>(cutsq);
-  const cell_walk::Launch L =
-      cell_walk::launch_shape<T, sorted_grid::SortedGrid<T, 4>>(nx * ny *
-                                                                nz);
-  eam_cell_force_kernel<T><<<L.grid, L.block, L.smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(gx), static_cast<const T*>(gy),
-      static_cast<const T*>(gz), static_cast<const T*>(gfp),
-      static_cast<const T*>(prd), static_cast<T*>(fx), static_cast<T*>(fy),
-      static_cast<T*>(fz), nx, ny, nz, cc, p);
+  return p;
+}
+
+template <typename T, int P>
+cell_walk::Launch walk_shape(int nx, int ny, int nz) {
+  return cell_walk::launch_shape<T, sorted_grid::SortedGrid<T, P>>(nx * ny *
+                                                                   nz);
+}
+
+// one launch of the rho sweep: the tally instance where `e` is not null
+// (then fp, valid, fpc and fc are read too)
+template <typename T>
+int launch_rho(const void* gx, const void* gy, const void* gz,
+               const void* prd, const void* valid, void* rho, void* fp,
+               void* e, int nx, int ny, int nz, int cc, const double* g,
+               double u_lo, double u_hi, double cutsq, const double* fpc,
+               double rho_lo, double rho_hi, double s_lo, double s_hi,
+               const double* fc, void* stream) {
+  const RhoParams<T> r =
+      rho_params<T>(g, u_lo, u_hi, cutsq, fp != nullptr ? fpc : nullptr,
+                    rho_lo, rho_hi, s_lo, s_hi);
+  const cell_walk::Launch L = walk_shape<T, 3>(nx, ny, nz);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto x = static_cast<const T*>(gx), y = static_cast<const T*>(gy),
+             z = static_cast<const T*>(gz), box = static_cast<const T*>(prd);
+  const auto v = static_cast<const unsigned char*>(valid);
+  if (e == nullptr) {
+    eam_cell_rho_kernel<T><<<L.grid, L.block, L.smem, s>>>(
+        x, y, z, box, v, static_cast<T*>(rho), static_cast<T*>(fp), nx, ny,
+        nz, cc, r);
+  } else {
+    RhoTallyParams<T> p;
+    p.r = r;
+    for (int k = 0; k < NF; ++k) p.F[k] = static_cast<T>(fc[k]);
+    eam_cell_rho_tally_kernel<T><<<L.grid, L.block, L.smem, s>>>(
+        x, y, z, box, v, static_cast<T*>(rho), static_cast<T*>(fp),
+        static_cast<T*>(e), nx, ny, nz, cc, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one launch of the force sweep: the tally instance where `tally` is not
+// null (then ge and phi are read too)
+template <typename T>
+int launch_force(const void* gx, const void* gy, const void* gz,
+                 const void* gfp, const void* ge, const void* prd, void* fx,
+                 void* fy, void* fz, void* tally, int nx, int ny, int nz,
+                 int cc, const double* a, const double* b, const double* phi,
+                 double u_lo, double u_hi, double cutsq, void* stream) {
+  const ForceParams<T> f = force_params<T>(a, b, u_lo, u_hi, cutsq);
+  const cell_walk::Launch L = walk_shape<T, 4>(nx, ny, nz);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto x = static_cast<const T*>(gx), y = static_cast<const T*>(gy),
+             z = static_cast<const T*>(gz), w = static_cast<const T*>(gfp),
+             box = static_cast<const T*>(prd);
+  if (tally == nullptr) {
+    eam_cell_force_kernel<T><<<L.grid, L.block, L.smem, s>>>(
+        x, y, z, w, box, static_cast<T*>(fx), static_cast<T*>(fy),
+        static_cast<T*>(fz), nx, ny, nz, cc, f);
+  } else {
+    ForceTallyParams<T> p;
+    p.f = f;
+    for (int k = 0; k < NPHI; ++k) p.phi[k] = static_cast<T>(phi[k]);
+    eam_cell_force_tally_kernel<T><<<L.grid, L.block, L.smem, s>>>(
+        x, y, z, w, static_cast<const T*>(ge), box, static_cast<T*>(fx),
+        static_cast<T*>(fy), static_cast<T*>(fz), static_cast<T*>(tally),
+        nx, ny, nz, cc, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,9 +457,9 @@ extern "C" int eam_cell_rho_f32(const void* gx, const void* gy,
                                 double cutsq, const double* fpc,
                                 double rho_lo, double rho_hi, double s_lo,
                                 double s_hi, void* stream) {
-  return launch_rho<float>(gx, gy, gz, prd, valid, rho, fp, nx, ny, nz, cc,
-                           g, u_lo, u_hi, cutsq, fpc, rho_lo, rho_hi, s_lo,
-                           s_hi, stream);
+  return launch_rho<float>(gx, gy, gz, prd, valid, rho, fp, nullptr, nx, ny,
+                           nz, cc, g, u_lo, u_hi, cutsq, fpc, rho_lo,
+                           rho_hi, s_lo, s_hi, nullptr, stream);
 }
 
 extern "C" int eam_cell_rho_f64(const void* gx, const void* gy,
@@ -283,9 +470,9 @@ extern "C" int eam_cell_rho_f64(const void* gx, const void* gy,
                                 double cutsq, const double* fpc,
                                 double rho_lo, double rho_hi, double s_lo,
                                 double s_hi, void* stream) {
-  return launch_rho<double>(gx, gy, gz, prd, valid, rho, fp, nx, ny, nz, cc,
-                            g, u_lo, u_hi, cutsq, fpc, rho_lo, rho_hi, s_lo,
-                            s_hi, stream);
+  return launch_rho<double>(gx, gy, gz, prd, valid, rho, fp, nullptr, nx, ny,
+                            nz, cc, g, u_lo, u_hi, cutsq, fpc, rho_lo,
+                            rho_hi, s_lo, s_hi, nullptr, stream);
 }
 
 extern "C" int eam_cell_force_f32(const void* gx, const void* gy,
@@ -295,8 +482,9 @@ extern "C" int eam_cell_force_f32(const void* gx, const void* gy,
                                   const double* a, const double* b,
                                   double u_lo, double u_hi, double cutsq,
                                   void* stream) {
-  return launch_force<float>(gx, gy, gz, gfp, prd, fx, fy, fz, nx, ny, nz,
-                             cc, a, b, u_lo, u_hi, cutsq, stream);
+  return launch_force<float>(gx, gy, gz, gfp, nullptr, prd, fx, fy, fz,
+                             nullptr, nx, ny, nz, cc, a, b, nullptr, u_lo,
+                             u_hi, cutsq, stream);
 }
 
 extern "C" int eam_cell_force_f64(const void* gx, const void* gy,
@@ -306,8 +494,57 @@ extern "C" int eam_cell_force_f64(const void* gx, const void* gy,
                                   const double* a, const double* b,
                                   double u_lo, double u_hi, double cutsq,
                                   void* stream) {
-  return launch_force<double>(gx, gy, gz, gfp, prd, fx, fy, fz, nx, ny, nz,
-                              cc, a, b, u_lo, u_hi, cutsq, stream);
+  return launch_force<double>(gx, gy, gz, gfp, nullptr, prd, fx, fy, fz,
+                              nullptr, nx, ny, nz, cc, a, b, nullptr, u_lo,
+                              u_hi, cutsq, stream);
+}
+
+// The tally instances (thermo rows). The rho tally writes rho, fp and the
+// embedding energy e (fc: the 81 F coefficients); `valid` is read. The
+// force tally reads ge (each row's e) and writes the forces and `tally`,
+// 7 planes of nx * ny * nz * cc rows (phi: 29 coefficients).
+extern "C" int eam_cell_rho_tally_f32(
+    const void* gx, const void* gy, const void* gz, const void* prd,
+    const void* valid, void* rho, void* fp, void* e, int nx, int ny, int nz,
+    int cc, const double* g, double u_lo, double u_hi, double cutsq,
+    const double* fpc, double rho_lo, double rho_hi, double s_lo,
+    double s_hi, const double* fc, void* stream) {
+  return launch_rho<float>(gx, gy, gz, prd, valid, rho, fp, e, nx, ny, nz,
+                           cc, g, u_lo, u_hi, cutsq, fpc, rho_lo, rho_hi,
+                           s_lo, s_hi, fc, stream);
+}
+
+extern "C" int eam_cell_rho_tally_f64(
+    const void* gx, const void* gy, const void* gz, const void* prd,
+    const void* valid, void* rho, void* fp, void* e, int nx, int ny, int nz,
+    int cc, const double* g, double u_lo, double u_hi, double cutsq,
+    const double* fpc, double rho_lo, double rho_hi, double s_lo,
+    double s_hi, const double* fc, void* stream) {
+  return launch_rho<double>(gx, gy, gz, prd, valid, rho, fp, e, nx, ny, nz,
+                            cc, g, u_lo, u_hi, cutsq, fpc, rho_lo, rho_hi,
+                            s_lo, s_hi, fc, stream);
+}
+
+extern "C" int eam_cell_force_tally_f32(
+    const void* gx, const void* gy, const void* gz, const void* gfp,
+    const void* ge, const void* prd, void* fx, void* fy, void* fz,
+    void* tally, int nx, int ny, int nz, int cc, const double* a,
+    const double* b, const double* phi, double u_lo, double u_hi,
+    double cutsq, void* stream) {
+  return launch_force<float>(gx, gy, gz, gfp, ge, prd, fx, fy, fz, tally,
+                             nx, ny, nz, cc, a, b, phi, u_lo, u_hi, cutsq,
+                             stream);
+}
+
+extern "C" int eam_cell_force_tally_f64(
+    const void* gx, const void* gy, const void* gz, const void* gfp,
+    const void* ge, const void* prd, void* fx, void* fy, void* fz,
+    void* tally, int nx, int ny, int nz, int cc, const double* a,
+    const double* b, const double* phi, double u_lo, double u_hi,
+    double cutsq, void* stream) {
+  return launch_force<double>(gx, gy, gz, gfp, ge, prd, fx, fy, fz, tally,
+                              nx, ny, nz, cc, a, b, phi, u_lo, u_hi, cutsq,
+                              stream);
 }
 
 // The launches the two sweeps make on `ncell` cells: out[0] blocks, out[1]

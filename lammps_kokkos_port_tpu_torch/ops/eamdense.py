@@ -19,9 +19,14 @@ of list mode "cell":
     of ops/eam_kernels, at every grid size (the JAX package switched to
     this module's roll path above 300k rows; the port has no such
     dispatch);
-  - energy/virial calls (thermo steps), and every call on cell buckets,
-    take the Newton-halved grid-roll path below, plain PyTorch, as the JAX
-    package left it to XLA.
+  - sorted energy/virial calls (thermo rows) go to the tally instances of
+    the same two sweeps (`eam_kernels.compute_tally_sorted`), counted on
+    `pair.eam_tally_rows` (utils/trace);
+  - every call on cell buckets takes the Newton-halved grid-roll path
+    `grid_roll`, plain PyTorch, as the JAX package left it to XLA; its
+    energy/virial calls count on `pair.eam_roll_rows`.
+The dispatch reads only the layout's type; the wrappers of ops/eam_kernels
+take the kernels for CUDA tensors and their plain twins for CPU ones.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.state import State
+from ..utils import trace
 from . import gridforce
 
 DEG = 28        # pair-function fits (per-candidate Clenshaw cost)
@@ -131,6 +137,19 @@ def embedding_fp(tabs: dict, rho: torch.Tensor,
                        / (2.0 * s), 0.0)
 
 
+def embedding_energy(tabs: dict, rho: torch.Tensor, fp: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """F(rho) per row through the embedding fit in s = sqrt(rho), extended
+    linearly with slope fp = F'(rho) above rho_hi; 0 where `valid` is
+    false."""
+    rho_lo, rho_hi = tabs["rho_range"]
+    s_lo, s_hi = tabs["s_range"]
+    s = torch.sqrt(torch.clamp(rho, rho_lo, rho_hi))
+    return torch.where(valid, clenshaw(tabs["F"], s, s_lo, s_hi)
+                       + torch.where(rho > rho_hi, fp * (rho - rho_hi), 0.0),
+                       0.0)
+
+
 def compute(style, state: State, cl, eflag: bool, vflag: bool):
     """Dense two-pass EAM over the sorted layout or the dense cell buckets
     (ops/cellforce), in the list's layout. Returns (f, pe, virial);
@@ -149,12 +168,28 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
     if tabs is None:
         raise NotImplementedError("dense EAM needs a single-type style")
 
+    if isinstance(cl, SortedCells):
+        from .eam_kernels import compute_force_sorted, compute_tally_sorted
+
+        if not eflag and not vflag:
+            return compute_force_sorted(style, tabs, state, cl), None, None
+        trace.count("pair.eam_tally_rows")
+        f, pe, virial = compute_tally_sorted(style, tabs, state, cl)
+        return f, pe if eflag else None, virial if vflag else None
+    if eflag or vflag:
+        trace.count("pair.eam_roll_rows")
+    return grid_roll(style, state, cl, eflag, vflag)
+
+
+def grid_roll(style, state: State, cl, eflag: bool, vflag: bool):
+    """The Newton-halved grid-roll pass in plain PyTorch, on the sorted
+    layout or the dense cell buckets. `compute` takes it for cell buckets;
+    on the sorted layout the tests hold the sweeps' twins against it.
+    Returns (f, pe, virial) as `compute` does."""
+    from .sortedforce import SortedCells
+
+    tabs = style.poly_tables
     sorted_layout = isinstance(cl, SortedCells)
-    if sorted_layout and not eflag and not vflag:
-        from .eam_kernels import compute_force_sorted
-
-        return compute_force_sorted(style, tabs, state, cl), None, None
-
     p = cl.params
     nx, ny, nz = p.ncells
     ntot = p.total_cells
@@ -174,8 +209,6 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
         og = state.owned_mask[bidx].reshape(nx, ny, nz, cc) & vg
 
     u_lo, u_hi = tabs["u_range"]
-    rho_lo, rho_hi = tabs["rho_range"]
-    s_lo, s_hi = tabs["s_range"]
     cutsq = float(style.cutmax) ** 2
 
     def pair_u(xi, xj, vi, vj, pair_mask):
@@ -219,7 +252,6 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
 
     rho, _ = roll_pass(rho_term)
     rho = torch.where(vg, rho, 0.0)
-    s = torch.sqrt(torch.clamp(rho, rho_lo, rho_hi))
     fp = embedding_fp(tabs, rho, vg)
 
     # ---- pass 2: forces (+ pair energy/virial) ----------------------------
@@ -253,10 +285,7 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
     pe = virial = None
     idx = 0
     if eflag:
-        e_embed = torch.sum(torch.where(
-            og, clenshaw(tabs["F"], s, s_lo, s_hi)
-            + torch.where(rho > rho_hi, fp * (rho - rho_hi), 0.0), 0.0))
-        pe = e_embed + tallies[0]
+        pe = torch.sum(embedding_energy(tabs, rho, fp, og)) + tallies[0]
         idx = 1
     if vflag:
         virial = tallies[idx:idx + 6]

@@ -175,9 +175,11 @@ def main(parent: str, rounds: int = 5, inner: int = 20,
         other_src = other_pairs_source(Path(tmp) / "other_pairs")
         cuda_build.build(ek.SOURCE, old_src, other_src)
         fused = fused_parent(old_src)
-        old = parent_library(old_src,
-                             ek.ARGTYPES if fused else PARENT_ARGTYPES)
-        other = parent_library(other_src, ek.ARGTYPES)
+        # the two sweeps' entry points (an earlier tree has no tally
+        # instances)
+        sweeps = {stem: ek.ARGTYPES[stem] for stem in ek.SWEEPS}
+        old = parent_library(old_src, sweeps if fused else PARENT_ARGTYPES)
+        other = parent_library(other_src, sweeps)
         regs = {tree: registers(src) for tree, src in (
             ("parent", old_src), ("new", ek.SOURCE),
             ("other_pairs", other_src))}

@@ -10,6 +10,13 @@ packages compute them in numpy. The sweeps sum in another order than the
 Newton-halved Pallas kernels and the roll path: rtol 1e-9 with atol
 1e-10*max|value| on valid rows (as tests/test_slab_half.py); padding rows
 exactly 0. Energy and virial of the thermo path: rtol 1e-10.
+
+The thermo path on the sorted layout runs the tally sweeps (their plain
+twins here) and is held against the JAX package and against the port's
+own grid-roll path (`eamdense.grid_roll`, the path of cell buckets): f64
+rtol 1e-10 with atol 1e-10*max; f32 forces and virial 1e-3*max|value|
+(measured 5e-5: the roll path sums each pair once and every grid in f32)
+and pe rtol 1e-5 (measured 1.6e-7).
 """
 
 import dataclasses
@@ -31,6 +38,7 @@ from lammps_kokkos_port_tpu.presets import (
     eam_bulk_cu_sim as jax_eam_bulk_cu_sim,
 )
 from lammps_kokkos_port_tpu_torch import interop
+from lammps_kokkos_port_tpu_torch.core.box import Box
 from lammps_kokkos_port_tpu_torch.io.eam_reader import (
     read_funcfl,
     write_sutton_chen_funcfl,
@@ -42,6 +50,7 @@ from lammps_kokkos_port_tpu_torch.models.pair_eam import (
 from lammps_kokkos_port_tpu_torch.ops import eam_kernels, eamdense
 from lammps_kokkos_port_tpu_torch.ops import sortedforce as sf
 from lammps_kokkos_port_tpu_torch.presets import eam_bulk_cu_sim
+from lammps_kokkos_port_tpu_torch.utils import trace
 
 RTOL, ATOL_REL = 1e-9, 1e-10
 
@@ -89,6 +98,21 @@ def _close(got, ref, valid, least=0.1):
     np.testing.assert_allclose(got[valid], ref[valid], rtol=RTOL,
                                atol=ATOL_REL * np.abs(ref[valid]).max())
     np.testing.assert_array_equal(got[~valid], 0.0)
+
+
+def _squeezed(x, valid, params, prd, every=4):
+    """Positions with one atom of every `every`-th cell moved 1.2 A from
+    another of its cell (toward the cell's middle in x): below the fits'
+    u_lo, so both rows' rho exceeds rho_hi and their embedding energy takes
+    the linear extension."""
+    x = np.array(x)
+    cc = params.cell_cap
+    edge = float(prd[0]) / params.ncells[0]
+    for c in range(0, params.total_cells, every):
+        i, j = c * cc + np.flatnonzero(valid[c * cc:(c + 1) * cc])[:2]
+        x[j] = x[i]
+        x[j, 0] += 1.2 if x[i, 0] % edge < edge / 2 else -1.2
+    return x
 
 
 def _port_cells(sim):
@@ -312,3 +336,195 @@ def test_non_cpu_tensors_never_reach_the_twins(pot):
         eam_kernels.eam_cell_rho_fp(eam_kernels.rho_tab(tabs, 24.5),
                                     eam_kernels.fp_tab(tabs), (3, 3, 3), g, g,
                                     g, valid, prd)
+    with pytest.raises(NotImplementedError, match="device"):
+        eam_kernels.eam_cell_rho_tally(
+            eam_kernels.rho_tab(tabs, 24.5), eam_kernels.fp_tab(tabs),
+            eam_kernels.embed_tab(tabs), (3, 3, 3), g, g, g, valid, prd)
+    with pytest.raises(NotImplementedError, match="device"):
+        eam_kernels.eam_cell_force_tally(
+            eam_kernels.force_tab(tabs, 24.5), eam_kernels.phi_tab(tabs),
+            (3, 3, 3), g, g, g, g, g, prd)
+
+
+def test_thermo_path_above_rho_hi_matches_jax(jax_sorted):
+    """Energy and virial where rows' rho exceeds rho_hi (pairs 1.2 A apart,
+    `_squeezed`): the linear extension of the embedding energy, against the
+    JAX package's thermo path."""
+    sim, st, style, port_state = jax_sorted
+    valid = np.asarray(st.valid_mask)
+    x = _squeezed(st.x, valid, sim.nl.params, st.box.prd)
+    st = st.replace(x=jnp.asarray(x))
+    port_state = port_state.replace(x=torch.from_numpy(x))
+    f_ref, pe_ref, vir_ref = jax.device_get(jax_eamdense.compute(
+        sim.pair_style, st, sim.nl, True, True))
+    cl = _port_cells(sim)
+    f, pe, vir = eamdense.compute(style, port_state, cl, True, True)
+    _close(f.numpy(), np.asarray(f_ref), valid)
+    np.testing.assert_allclose(pe.item(), float(pe_ref), rtol=1e-10)
+    np.testing.assert_allclose(vir.numpy(), np.asarray(vir_ref), rtol=1e-10,
+                               atol=1e-10 * np.abs(vir_ref).max())
+    p = sim.nl.params
+    g = sf.planar(port_state.x).reshape(3, p.total_cells, p.cell_cap)
+    rho = eam_kernels.eam_cell_rho(
+        eam_kernels.rho_tab(style.poly_tables, float(style.cutmax) ** 2),
+        p.ncells, g[0], g[1], g[2], port_state.box.prd)
+    assert int((rho.reshape(-1) > style.poly_tables["rho_range"][1]).sum()
+               ) >= 2 * len(range(0, p.total_cells, 4))
+
+
+@pytest.fixture(scope="module")
+def port_sorted(pot):
+    """dtype -> the port's own sorted EAM simulation (cells 5, CPU) after
+    setup() and its state with the real rows jittered by a seeded +-0.08
+    A."""
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        sim = eam_bulk_cu_sim(cells=5, dtype=dt, potential_path=pot,
+                              device="cpu", list_mode="sorted")
+        sim.setup()
+        st = sim.state
+        rng = np.random.default_rng(7)
+        x = st.x.double().numpy().copy()
+        valid = st.valid_mask.numpy()
+        x[valid] += rng.uniform(-0.08, 0.08, (int(valid.sum()), 3))
+        out[dt] = sim, st.replace(x=torch.from_numpy(x).to(dt))
+    return out
+
+
+@pytest.mark.parametrize("squeeze", [False, True],
+                         ids=["jittered", "above_rho_hi"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tally_twin_matches_grid_roll(port_sorted, dtype, squeeze):
+    """The sorted thermo path (the tally sweeps' twins) against the port's
+    grid-roll path on the same state: forces, pe and virial."""
+    sim, st = port_sorted[dtype]
+    valid = st.valid_mask.numpy()
+    if squeeze:
+        st = st.replace(x=torch.from_numpy(_squeezed(
+            st.x, valid, sim.nl.params, st.box.prd)).to(dtype))
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    before = (eam_kernels.eam_cell_rho_tally.launches,
+              eam_kernels.eam_cell_force_tally.launches)
+    f, pe, vir = eamdense.compute(sim.pair_style, st, sim.nl, True, True)
+    assert before == (eam_kernels.eam_cell_rho_tally.launches,
+                      eam_kernels.eam_cell_force_tally.launches)
+    f_ref, pe_ref, vir_ref = eamdense.grid_roll(sim.pair_style, st, sim.nl,
+                                                True, True)
+    assert pe.dtype == vir.dtype == f.dtype == dtype and vir.shape == (6,)
+    np.testing.assert_allclose(f.numpy()[valid], f_ref.numpy()[valid],
+                               rtol=tol,
+                               atol=tol * np.abs(f_ref.numpy()).max())
+    np.testing.assert_allclose(pe.item(), pe_ref.item(),
+                               rtol=1e-10 if dtype == torch.float64 else 1e-5)
+    np.testing.assert_allclose(vir.numpy(), vir_ref.numpy(), rtol=tol,
+                               atol=tol * np.abs(vir_ref.numpy()).max())
+    assert abs(pe.item()) > 1.0 and np.abs(vir.numpy()).max() > 1.0
+
+
+def test_tally_twins_hold_their_planes(port_sorted):
+    """The tally twins' planes: e is F(rho) on valid rows and 0 elsewhere,
+    the force tally's forces are the force twin's, and its planes are pe
+    and the virial's halves per row."""
+    sim, st = port_sorted[torch.float64]
+    tabs = sim.pair_style.poly_tables
+    cutsq = float(sim.pair_style.cutmax) ** 2
+    p = sim.nl.params
+    g = sf.planar(st.x).reshape(3, p.total_cells, p.cell_cap)
+    args = (p.ncells, g[0], g[1], g[2])
+    rho, fp, e = eam_kernels.eam_cell_rho_tally(
+        eam_kernels.rho_tab(tabs, cutsq), eam_kernels.fp_tab(tabs),
+        eam_kernels.embed_tab(tabs), *args, st.valid_mask, st.box.prd)
+    valid = st.valid_mask.reshape(e.shape)
+    assert torch.equal(e[~valid], torch.zeros_like(e[~valid]))
+    assert bool((e[valid] < 0).all())
+    torch.testing.assert_close(
+        e, eamdense.embedding_energy(tabs, rho, fp, valid), rtol=0, atol=0)
+    f, tally = eam_kernels.eam_cell_force_tally(
+        eam_kernels.force_tab(tabs, cutsq), eam_kernels.phi_tab(tabs), *args,
+        fp, e, st.box.prd)
+    assert tally.shape == (7, *e.shape)
+    torch.testing.assert_close(f, eam_kernels.eam_cell_force(
+        eam_kernels.force_tab(tabs, cutsq), *args, fp, st.box.prd),
+        rtol=0, atol=0)
+    _, pe, vir = eamdense.compute(sim.pair_style, st, sim.nl, True, True)
+    sums = tally.reshape(7, -1).sum(1)
+    assert sums[0].item() == pytest.approx(pe.item(), rel=1e-13)
+    np.testing.assert_allclose(sums[1:].numpy(), vir.numpy(), rtol=1e-13)
+    with pytest.raises(ValueError, match="channels"):
+        eam_kernels.eam_cell_force_tally(
+            eam_kernels.force_tab(tabs, cutsq), eam_kernels.phi_tab(tabs),
+            *args, fp, e.float(), st.box.prd)
+
+
+def test_energy_pass_counters(port_sorted, pot):
+    """`pair.eam_tally_rows` counts the sorted layout's energy passes (the
+    tally sweeps), `pair.eam_roll_rows` the cell buckets' (the grid-roll
+    path); force-only passes count on neither; pe and virial come back
+    only where asked for."""
+    sim, st = port_sorted[torch.float64]
+    cell = eam_bulk_cu_sim(cells=5, dtype=torch.float64, potential_path=pot,
+                           device="cpu", list_mode="cell")
+    cell.setup()
+    trace.reset()
+    trace.enable()
+    try:
+        f, pe, vir = eamdense.compute(sim.pair_style, st, sim.nl, True, False)
+        assert pe is not None and vir is None
+        f, pe, vir = eamdense.compute(sim.pair_style, st, sim.nl, False, True)
+        assert pe is None and vir.shape == (6,)
+        eamdense.compute(sim.pair_style, st, sim.nl, False, False)
+        assert trace.snapshot()["counters"] == {"pair.eam_tally_rows": 2}
+        eamdense.compute(cell.pair_style, cell.state, cell.nl, False, False)
+        _, pe, vir = eamdense.compute(cell.pair_style, cell.state, cell.nl,
+                                      True, True)
+        assert pe is not None and vir is not None
+        assert trace.snapshot()["counters"] == {"pair.eam_tally_rows": 2,
+                                                "pair.eam_roll_rows": 1}
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def test_tally_sums_leave_out_pads_that_meet(port_sorted):
+    """A (3, 3, 3) x cc 1 sorted grid whose box edge is 26 * PAD_STEP + 1:
+    the pads of rows 0 and 26 meet across the periodic corner (r2 = 3), so
+    the twins give them a pair energy and a virial. The thermo path sums
+    only the valid rows' planes, as the grid-roll path masks pads: pe and
+    virial equal grid_roll's. (x, mask and box are replaced; the other
+    per-row fields are not read.)"""
+    sim, st = port_sorted[torch.float64]
+    edge = 26 * sf.PAD_STEP + 1.0
+    x = sf._pad_x(27, torch.float64, "cpu")[:, None].repeat(1, 3)
+    mask = torch.zeros(27, dtype=torch.int32)
+    # rows 1-25 hold atoms off the box's diagonal (where the pads lie) and
+    # far from each other: no pair of any kind reaches them
+    for row in range(1, 26):
+        c = np.array([row // 9, row // 3 % 3, row % 3])
+        x[row] = torch.from_numpy((c + 0.5) * edge / 3 + [10.0, -20.0, 30.0])
+        mask[row] = 1
+    box = Box.create([0.0] * 3, [edge] * 3)
+    corner = st.replace(x=x, mask=mask, box=box)
+    params = dataclasses.replace(sim.nl.params, ncells=(3, 3, 3), cell_cap=1)
+    cl = sf.SortedCells(ago=0, nbuilds=1, overflow=torch.tensor(False),
+                        params=params)
+    _, pe, vir = eamdense.compute(sim.pair_style, corner, cl, True, True)
+    _, pe_ref, vir_ref = eamdense.grid_roll(sim.pair_style, corner, cl, True,
+                                            True)
+    assert pe.item() == pytest.approx(pe_ref.item(), rel=1e-12)
+    np.testing.assert_allclose(vir.numpy(), vir_ref.numpy(), rtol=0,
+                               atol=1e-12)
+    tabs = sim.pair_style.poly_tables
+    cutsq = float(sim.pair_style.cutmax) ** 2
+    g = sf.planar(x).reshape(3, 27, 1)
+    args = ((3, 3, 3), g[0], g[1], g[2])
+    _, fp, e = eam_kernels.eam_cell_rho_tally(
+        eam_kernels.rho_tab(tabs, cutsq), eam_kernels.fp_tab(tabs),
+        eam_kernels.embed_tab(tabs), *args, mask != 0, box.prd)
+    _, tally = eam_kernels.eam_cell_force_tally(
+        eam_kernels.force_tab(tabs, cutsq), eam_kernels.phi_tab(tabs), *args,
+        fp, e, box.prd)
+    pads = tally.reshape(7, 27)[:, [0, 26]]
+    assert bool((pads[0] != 0).all()) and bool((pads[1:4] != 0).all())
+    sums = eam_kernels.tally_sums(tally, mask != 0)
+    assert sums[0].item() == pytest.approx(pe_ref.item(), rel=1e-12)
+    assert (tally.reshape(7, -1).sum(1)[0] - sums[0]).abs() > 1e-3

@@ -16,6 +16,21 @@ f32 rtol 1e-4 with atol 1e-4*max|value|. Kernel and twin make the same
 cutoff decisions (r2 is rounded alike); the Chebyshev series and the sums
 differ in rounding and order. The fused fp = F'(rho) is held against
 `embedding_fp` of the plain rho with the same tolerances.
+
+The tally instances (thermo rows) are held against their twins row by
+row with the same tolerances, and their sums over rows (float64 on both
+sides) tighter: pe rtol 1e-12 in f64, 1e-5 in f32; the virial rtol 1e-12
+with atol 1e-12*max|virial| in f64 (a component may be near zero). In f32
+a row's virial is a sum of pair terms that cancel (fpair itself is the
+difference of the embedding and pair parts), so f32's own rounding of it
+is far above 1e-4 of its largest value: the f32 twin differs from an f64
+evaluation of the same inputs by about 5e-3 of the largest summed
+component on the deck's lattice. There the kernel's virial planes and sums
+are held to the f64 evaluation within twice the f32 twin's own deviation
+from it, plus 1e-4 (planes) or 1e-5 (sums) of the largest value: the
+kernel is as accurate as the plain version in the same type. The tally
+launch's forces equal the step instance's to a few ulps (the same walk
+and series; only the compiler's scheduling differs).
 """
 
 import numpy as np
@@ -34,6 +49,7 @@ from lammps_kokkos_port_tpu_torch.ops.sortedforce import (
     _pad_x,
 )
 from lammps_kokkos_port_tpu_torch.presets import eam_bulk_cu_sim
+from lammps_kokkos_port_tpu_torch.utils import trace
 from test_torch_pair_kernel_cuda import _lattice_grid, planted_pairs
 
 pytestmark = pytest.mark.cuda
@@ -345,3 +361,190 @@ def test_kernels_reject_bad_input(cuda, tmp_path):
                                    g[2], g[0], prd)
     assert before == (eam_kernels.eam_cell_rho.launches,
                       eam_kernels.eam_cell_force.launches)
+
+
+def _tally_counts():
+    return (eam_kernels.eam_cell_rho.launches,
+            eam_kernels.eam_cell_force.launches,
+            eam_kernels.eam_cell_rho_tally.launches,
+            eam_kernels.eam_cell_force_tally.launches)
+
+
+def _tallies_match(tabs, ncells, g, valid, prd, dtype):
+    """Both tally sweeps against their twins, one launch each (the force
+    tally fed the twin's fp and e), and the tally launch's forces against
+    the step instance's on the same inputs; the sums over rows. Returns the
+    twins' (rho, fp, e, tally)."""
+    rtab, ftab, fptab, etab, phitab = tabs
+    before = _tally_counts()
+    rho, fp, e = eam_kernels.eam_cell_rho_tally(rtab, fptab, etab, ncells,
+                                                g[0], g[1], g[2], valid, prd)
+    torch.cuda.synchronize()
+    rho_ref, fp_ref, e_ref = eam_kernels.eam_cell_rho_tally_reference(
+        rtab, fptab, etab, ncells, g[0], g[1], g[2], valid, prd)
+    for got, ref in ((rho, rho_ref), (fp, fp_ref), (e, e_ref)):
+        _assert_close(got, ref, dtype)
+    assert bool((e[~valid.reshape(e.shape)] == 0).all())
+    fp_ref, e_ref = fp_ref.contiguous(), e_ref.contiguous()
+    f, tally = eam_kernels.eam_cell_force_tally(
+        ftab, phitab, ncells, g[0], g[1], g[2], fp_ref, e_ref, prd)
+    torch.cuda.synchronize()
+    f_ref, tally_ref = eam_kernels.eam_cell_force_tally_reference(
+        ftab, phitab, ncells, g[0], g[1], g[2], fp_ref, e_ref, prd)
+    _assert_close(f, f_ref, dtype)
+    exact = None
+    if dtype == torch.float64:
+        for k in range(7):
+            _assert_close(tally[k], tally_ref[k], dtype)
+    else:
+        _assert_close(tally[0], tally_ref[0], dtype)
+        exact = eam_kernels.eam_cell_force_tally_reference(
+            ftab, phitab, ncells, *(a.double() for a in (
+                g[0], g[1], g[2], fp_ref, e_ref)), prd.double())[1]
+        for k in range(1, 7):
+            _as_accurate(tally[k], tally_ref[k], exact[k], 1e-4)
+    assert _tally_counts() == (before[0], before[1], before[2] + 1,
+                               before[3] + 1)
+    step_f = eam_kernels.eam_cell_force(ftab, ncells, g[0], g[1], g[2],
+                                        fp_ref, prd)
+    torch.cuda.synchronize()
+    ulps = 8 * torch.finfo(dtype).eps
+    torch.testing.assert_close(f, step_f, rtol=ulps,
+                               atol=ulps * step_f.abs().max().item())
+    sums = tally.reshape(7, -1).sum(1, dtype=torch.float64)
+    ref = tally_ref.reshape(7, -1).sum(1, dtype=torch.float64)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    vmax = ref[1:].abs().max().clamp_min(1e-300)
+    line = (f"[tally {dtype}] pe {sums[0].item():.17g} twin "
+            f"{ref[0].item():.17g} rel {(sums[0] / ref[0] - 1).abs():.3g}; "
+            f"virial vs twin rel-to-max "
+            f"{(sums[1:] - ref[1:]).abs().max() / vmax:.3g}")
+    torch.testing.assert_close(sums[0], ref[0], rtol=tol,
+                               atol=tol * ref[0].abs().item())
+    if exact is None:
+        torch.testing.assert_close(sums[1:], ref[1:], rtol=tol,
+                                   atol=tol * vmax.item())
+    else:
+        whole = exact.reshape(7, -1).sum(1)[1:]
+        gap = (sums[1:] - whole).abs().max() / vmax
+        line += (f"; vs f64: kernel {gap:.3g}"
+                 f", twin {(ref[1:] - whole).abs().max() / vmax:.3g}; planes "
+                 f"vs f64: kernel {(tally[1:] - exact[1:]).abs().max():.3g}, "
+                 f"twin {(tally_ref[1:] - exact[1:]).abs().max():.3g}")
+        _as_accurate(sums[1:], ref[1:], whole, tol)
+    print(f"{line}; forces vs step max abs "
+          f"{(f - step_f).abs().max().item():.3g}")
+    return rho_ref, fp_ref, e_ref, tally_ref
+
+
+def _as_accurate(got, twin, exact, rel):
+    """`got` within twice the twin's deviation from `exact` (the same
+    values evaluated in f64), plus `rel` of the largest |exact|."""
+    allowed = (2 * (twin.double() - exact).abs().max()
+               + rel * exact.abs().max()).item()
+    worst = (got.double() - exact).abs().max().item()
+    assert worst <= allowed, (worst, allowed)
+
+
+def _tally_tabs(tabs, cutsq):
+    """The tally sweeps' constants: (rho_tab, force_tab, fp_tab, embed_tab,
+    phi_tab)."""
+    return (eam_kernels.rho_tab(tabs, cutsq),
+            eam_kernels.force_tab(tabs, cutsq), eam_kernels.fp_tab(tabs),
+            eam_kernels.embed_tab(tabs), eam_kernels.phi_tab(tabs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tally_kernels_match_twin(cuda, tmp_path, dtype):
+    """The tally sweeps on the jittered deck state (cells 6): rho, fp, e,
+    forces and the seven planes row by row, pe and virial summed; the
+    forces equal the step instance's."""
+    sim = _sim(tmp_path, dtype, cuda)
+    p = sim.nl.params
+    g, prd, *_ = _grid_inputs(sim, dtype)
+    cutsq = float(sim.pair_style.cutmax) ** 2
+    _, _, e, tally = _tallies_match(
+        _tally_tabs(sim.pair_style.poly_tables, cutsq), p.ncells, g,
+        sim.state.valid_mask, prd, dtype)
+    assert e.abs().max().item() > 1.0 and tally[1:].abs().max() > 0.01
+
+
+def _clamped_grid(dtype, device):
+    """test_clamped_u_and_rho's planted atoms: two rows above rho_hi (the
+    embedding energy's linear extension), two below rho_lo, one alone."""
+    pos = np.array([[2.0, 2.0, 2.0], [3.2, 2.0, 2.0],
+                    [12.0, 7.5, 7.5], [16.0, 7.5, 7.5],
+                    [7.5, 12.5, 12.5]])
+    ncells = (4, 3, 3)
+    g, valid, _ = _planted_grid(pos, ncells, 32, dtype, device)
+    prd = torch.tensor([20.0, 15.0, 15.0], dtype=dtype, device=device)
+    return ncells, g, valid, prd
+
+
+def _interleaved_grid(dtype, device):
+    """test_interleaved_pads_cc64's grid: pads before live rows at cc 64,
+    one cell of 40 atoms."""
+    ncells = (3, 3, 4)
+    counts = [(c * 7) % 32 + 4 for c in range(36)]
+    counts[5] = 40
+    g, prd, valid = _lattice_grid(ncells, 64, counts, 11, dtype, device,
+                                  side=SIDE)
+    return ncells, g, valid.reshape(-1), prd
+
+
+@pytest.mark.parametrize("grid,dtype", [
+    ("interleaved", torch.float32), ("interleaved", torch.float64),
+    ("clamped", torch.float32), ("clamped", torch.float64),
+    ("huge_box", torch.float64), ("corner_pads", torch.float64)])
+def test_tallies_on_planted_and_padded_grids(cuda, tmp_path, grid, dtype):
+    """The tally sweeps against their twins on padded and interleaved-pad
+    grids (cc 64), on rows above rho_hi and below rho_lo, and where pads
+    could meet (every row walked, e 0 on every pad)."""
+    tabs3 = _tabs(tmp_path)
+    tabs = _tally_tabs(tabs3[3], tabs3[0][3])
+    if grid == "interleaved":
+        ncells, g, valid, prd = _interleaved_grid(dtype, cuda)
+    elif grid == "clamped":
+        ncells, g, valid, prd = _clamped_grid(dtype, cuda)
+    else:
+        g, prd, valid = (_huge_box if grid == "huge_box" else
+                         _corner_pads)(cuda)
+        ncells = (3, 3, 3)
+    rho, fp, e, tally = _tallies_match(tabs, ncells, g, valid, prd, dtype)
+    if grid == "clamped":
+        above = rho.reshape(-1) > tabs3[3]["rho_range"][1]
+        assert int(above.sum()) == 2
+        assert bool((fp.reshape(-1)[above] != 0).all())
+    if grid == "corner_pads":
+        # the pads' planes (the kernel's, held to these above) are left out
+        # of the sums: no valid row, so pe and virial are 0 (grid_roll's)
+        assert bool((e == 0).all()) and tally[0, 0, 0] != 0
+        assert bool((eam_kernels.tally_sums(tally, valid) == 0).all())
+
+
+def test_thermo_row_launches_each_tally_once(cuda, tmp_path, monkeypatch):
+    """A thermo row on the card: one launch of each tally sweep, none of
+    the step's sweeps and none of the grid-roll path; the row's pe and
+    press against the same row on the CPU (the twins)."""
+    sim = _sim(tmp_path, torch.float64, cuda)
+    cpu = _sim(tmp_path, torch.float64, torch.device("cpu"))
+
+    def no_roll(*args, **kwargs):
+        raise AssertionError("grid-roll path on the sorted layout")
+
+    monkeypatch.setattr(eamdense, "grid_roll", no_roll)
+    before = _tally_counts()
+    trace.reset()
+    trace.enable()
+    try:
+        row = sim.thermo()
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert _tally_counts() == (before[0], before[1], before[2] + 1,
+                               before[3] + 1)
+    assert counters == {"pair.eam_tally_rows": 1}
+    ref = cpu.thermo()
+    for k in ("pe", "press", "pxx", "pxy", "fmax"):
+        assert row[k] == pytest.approx(ref[k], rel=1e-10, abs=1e-10), k
