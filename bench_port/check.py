@@ -37,30 +37,28 @@ from pathlib import Path
 
 import torch
 
-from . import decks
-from .reference import eam_tables, md
-from .reference.models import CONTROL, CUTOFF_BAND, EAM, LJ, REF
+from . import decks, lookup
+from .reference import md
+from .reference.models import CONTROL, CUTOFF_BAND, REF
 from .reference.neighbors import min_image
 
 NUMBERS = ("force_gap", "position_rms", "velocity_rms", "thermo_gap")
-LIMITS = Path(__file__).resolve().parent / "limits"
+ROOT = Path(__file__).resolve().parent
+LIMITS = ROOT / "limits"
+REFERENCE = ROOT / "reference"
 
 
 def system_for(config: dict, mix: dict, device, potential_path=None):
-    """The reference's view of a deck: box, mass, step, units, model."""
+    """The reference's view of a deck: box, mass, step, units, model. The
+    model and mass come from `build(config, potential_path, band)` of
+    `reference/pair_<style>.py` (`/` in the style read as `_`)."""
     prd = torch.tensor(decks.box_lengths(config, mix), dtype=torch.float64,
                        device=device)
-    pair = config["pair"]
-    band = CUTOFF_BAND[config["dtype"]]
-    if pair["style"] == "lj/cut":
-        model = LJ(pair["epsilon"], pair["sigma"], pair["cutoff"], band)
-        mass = config["mass"]
-    elif pair["style"] == "eam":
-        tables = eam_tables.build(potential_path, config["math"])
-        model = EAM(tables, band)
-        mass = tables["mass"]
-    else:
-        raise NotImplementedError(pair["style"])
+    style = config["pair"]["style"]
+    model, mass = lookup.module(
+        REFERENCE, "pair_" + style.replace("/", "_"),
+        f"reference of pair style {style!r}").build(
+            config, potential_path, CUTOFF_BAND[config["dtype"]])
     return md.System(prd=prd, mass=mass, dt=config["timestep"],
                      units=config["units"], model=model,
                      skin=config["reference_skin"])

@@ -2,7 +2,8 @@
 stretch, the comparison with the reference, and the result line.
 
 Set-up (counted in `setup_s`, from process start): build and load the
-cell's own CUDA sources (`setup.build_s`); run the generated deck up to its
+cell's own CUDA sources (`setup.build_s`); provide the potential file
+(`decks.potential`); run the generated deck up to its
 last `run` and a `run 0` (atoms, velocities, grid sizing, the first list,
 the first force pass and thermo row: `setup.sim_s`); then the deck's `run`
 once through `Simulation.run` as the warm-up, which launches every kernel
@@ -13,7 +14,9 @@ N` at its thermo cadence) until `--seconds` have passed; it ends with
 `torch.cuda.synchronize()`. The rate is atoms x steps over the window's
 wall time, with every host read, thermo row, rebuild and retry in it.
 With `--trace 1` a stretch of the same runs follows under torch.profiler
-and the per-layer readers (`metrics/`) take their numbers from it.
+and the per-layer readers (`metrics/`) take their numbers from it and from
+the end state's counts (`reference.neighbors.work_counts`: pairs, atoms,
+and triplets where a kernel's work file names `triplet_ops`).
 
 After the window the memory peak is read, the program's outputs are copied
 by atom tag, the program is freed, and the reference decides `correct`
@@ -26,7 +29,6 @@ import argparse
 import contextlib
 import gc
 import importlib
-import importlib.util
 import json
 import math
 import sys
@@ -35,9 +37,11 @@ import time
 import traceback
 from pathlib import Path
 
-from . import check, decks
+from . import check, decks, lookup
 from .reference import md
 from .reference.models import REF
+from .reference.neighbors import work_counts
+from .roofline import peaks
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
@@ -136,13 +140,10 @@ def reader(name: str):
     name that has a file."""
     parts = name.split(".")
     for k in range(len(parts), 0, -1):
-        path = ROOT / "metrics" / (".".join(parts[:k]) + ".py")
-        if path.exists():
-            spec = importlib.util.spec_from_file_location(
-                f"bench_port_metric_{k}_{abs(hash(path))}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.read
+        stem = ".".join(parts[:k])
+        if (ROOT / "metrics" / f"{stem}.py").exists():
+            return lookup.module(ROOT / "metrics", stem,
+                                 f"reader of {name!r}").read
     raise FileNotFoundError(f"no reader for metric {name!r} in metrics/")
 
 
@@ -181,13 +182,9 @@ def run_cell(cell: decks.Cell, seed: int, seconds: float, trace: bool,
     build_s = time.perf_counter() - t
 
     with tempfile.TemporaryDirectory() as tmp:
-        pot = None
-        if "potential" in config:
-            from .potential import write_funcfl
-
-            pot = write_funcfl(Path(tmp) / config["pair"]["file_token"],
-                               config["potential"])
-        lines, run_steps = decks.make_deck(config, seed, pot)
+        pot = decks.potential(config, cell.config_dir, Path(tmp))
+        lines, run_steps = decks.make_deck(config, seed, pot,
+                                           cell.config_dir)
         deck_path = Path(tmp) / "deck.in"
         deck_path.write_text("\n".join(lines) + "\n")
 
@@ -318,13 +315,13 @@ def run_cell(cell: decks.Cell, seed: int, seconds: float, trace: bool,
             log(f"[reference] {seg_steps} steps from step {snap_step} and "
                 f"the end state in {info['reference_s']:.3f} s")
             if traced is not None:
-                from .reference.neighbors import count_pairs
-
-                ctx = {"natoms": natoms, "dtype": config["dtype"],
-                       "kernels": list(kernels), "build_s": build_s,
-                       "sim_s": sim_s, "window": window, "trace": traced,
-                       "pairs": count_pairs(end["x"], system.prd,
-                                            system.model.cutoff)}
+                counts = work_counts(end["x"], system.prd,
+                                     system.model.cutoff,
+                                     peaks.needs_triplets(kernels))
+                info["counts"] = counts
+                ctx = {"dtype": config["dtype"], "kernels": list(kernels),
+                       "build_s": build_s, "sim_s": sim_s, "window": window,
+                       "trace": traced, "counts": counts}
         health.append(("no_jax", "jax" not in sys.modules,
                        "jax not imported"))
 

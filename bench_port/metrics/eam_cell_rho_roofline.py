@@ -1,9 +1,9 @@
 """Percent of its roofline one call of eam_cell_rho reaches in the traced runs
-(roofline/kernels/eam_cell_rho.json; pairs within the cutoff of the end state)."""
+(roofline/kernels/eam_cell_rho.json; the end state's counts)."""
 
 from bench_port.roofline import peaks
 
 
 def read(ctx, name):
-    return peaks.kernel_share("eam_cell_rho", ctx["trace"], ctx["pairs"],
-                              ctx["natoms"], ctx["dtype"])
+    return peaks.kernel_share("eam_cell_rho", ctx["trace"], ctx["counts"],
+                              ctx["dtype"])

@@ -1,4 +1,5 @@
-"""The Sutton-Chen Cu funcfl stand-in for bench/Cu_u3.eam.
+"""The writer of the potential kind `sutton-chen-funcfl`: the Sutton-Chen Cu
+funcfl stand-in for bench/Cu_u3.eam.
 
 Sutton & Chen, Phil. Mag. Lett. 61, 139 (1990): phi(r) = eps (a/r)^n,
 rho(r) = (a/r)^m, F(rho) = -c eps sqrt(rho). phi and rho are shifted to
@@ -26,7 +27,7 @@ def fcc_density(rho_fn, a0: float, cut: float) -> float:
     return float(np.sum(rho_fn(r)))
 
 
-def write_funcfl(path, spec: dict) -> str:
+def write(path, spec: dict) -> str:
     """Write the funcfl file of `spec` (the configuration's `potential`)
     to `path`; returns the path."""
     n, m, eps, c, a = (spec[k] for k in ("n", "m", "eps", "c", "a"))

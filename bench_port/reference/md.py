@@ -32,7 +32,7 @@ class System:
     mass: float
     dt: float
     units: str
-    model: object       # models.LJ or models.EAM
+    model: object       # a pair model (models.py states its contract)
     skin: float
 
     @property

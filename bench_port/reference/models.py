@@ -5,6 +5,20 @@ Chebyshev form of a single-element funcfl potential that the eam-cu
 configuration states (`eam_tables.build`). Both evaluate the pairs of
 `neighbors.half_pairs` that lie within the cutoff, in blocks of pairs.
 
+The contract a model meets (`reference/pair_<style>.py` builds it, and
+`md` and `check` use nothing else of it):
+
+- `cutoff`: the force cutoff (length units);
+- `evaluate(x, prd, pairs, prec, energy) -> Result`: the forces on the N
+  atoms at positions `x` [N, 3] in the periodic box `prd` [3], and with
+  `energy` the potential energy, the virial, the summed |virial| and each
+  atom's `band`. `pairs` is `neighbors.half_pairs` within cutoff + skin:
+  each unordered pair once, some of them beyond the cutoff, which the
+  model leaves out itself. A many-body model builds what it needs from
+  these pairs, as `EAM` builds each atom's density; a three-body one
+  would build each atom's neighbours within the cutoff from them.
+  Arithmetic follows `prec` (below).
+
 `Precision` says where each value is computed: positions, velocities and
 every sum in `state`, each pair's (and each row's embedding) arithmetic in
 `pair`. `REF` is float64 throughout; `CONTROL[dtype]` is the step below a

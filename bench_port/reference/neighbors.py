@@ -81,6 +81,16 @@ def half_pairs(x: torch.Tensor, prd: torch.Tensor, rlist: float):
     return torch.cat(out_i), torch.cat(out_j)
 
 
-def count_pairs(x: torch.Tensor, prd: torch.Tensor, cutoff: float) -> int:
-    """Unordered pairs closer than `cutoff`, each counted once."""
-    return int(half_pairs(x, prd, cutoff)[0].numel())
+def work_counts(x: torch.Tensor, prd: torch.Tensor, cutoff: float,
+                triplets: bool = False) -> dict:
+    """What the kernels' work is counted per (`roofline/peaks`): `pairs`,
+    the unordered pairs closer than `cutoff`, each once; `atoms`; and with
+    `triplets`, the ordered triplets (i; j, k), j != k, with r_ij and r_ik
+    both under `cutoff`: sum over atoms of n_i (n_i - 1), n_i the atom's
+    pairs."""
+    i, j = half_pairs(x, prd, cutoff)
+    out = {"pairs": int(i.numel()), "atoms": int(x.shape[0])}
+    if triplets:
+        n = torch.bincount(torch.cat([i, j]), minlength=x.shape[0])
+        out["triplets"] = int((n * (n - 1)).sum())
+    return out

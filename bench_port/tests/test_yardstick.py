@@ -1,6 +1,7 @@
 """CPU self-tests of the benchmark's own arithmetic: the pair counter
 against brute force, `bound_of` against a hand count, the deck generator,
-the potential writer and BENCHMARK.json's wiring of cells and readers.
+every configuration against its deck, the potential writer and
+BENCHMARK.json's wiring of cells and readers.
 
     python -m pytest bench_port/tests -q
 """
@@ -14,9 +15,8 @@ import pytest
 import torch
 
 from bench_port import decks, harness
-from bench_port.potential import write_funcfl
 from bench_port.reference import eam_tables
-from bench_port.reference.neighbors import count_pairs, half_pairs
+from bench_port.reference.neighbors import half_pairs, work_counts
 from bench_port.roofline import peaks
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,7 +42,8 @@ def test_pairs_match_brute_force(seed, prd, cut):
     got = {(min(a, b), max(a, b)) for a, b in zip(i.tolist(), j.tolist())}
     assert len(got) == i.numel()  # each pair once
     assert got == brute_pairs(x, prd, cut)
-    assert count_pairs(torch.tensor(x), torch.tensor(prd), cut) == len(got)
+    assert work_counts(torch.tensor(x), torch.tensor(prd), cut) == {
+        "pairs": len(got), "atoms": 400}
 
 
 def test_pairs_need_three_cells():
@@ -57,7 +58,8 @@ def test_fcc_pair_count_by_hand():
                      -1).reshape(-1, 1, 3)
     basis = np.array([[0, 0, 0], [.5, .5, 0], [.5, 0, .5], [0, .5, .5]])
     x = torch.tensor((cells + basis).reshape(-1, 3))
-    assert count_pairs(x, torch.tensor([4.0, 4.0, 4.0]), 1.1) == 9 * 256
+    assert work_counts(x, torch.tensor([4.0, 4.0, 4.0]), 1.1)[
+        "pairs"] == 9 * 256
 
 
 def test_op_counts_by_hand():
@@ -70,23 +72,23 @@ def test_op_counts_by_hand():
 def test_bound_of_by_hand():
     # 1e6 pairs x 25 ops = 2.5e7 ops: 2.5e7 / 67e12 s = 0.373 us;
     # 1e6 bytes / 3.35e12 = 0.299 us: operations bound
-    b = peaks.bound_of(1_000_000, 25, 1_000_000, "float32")
+    b = peaks.bound_of(1_000_000 * 25, 1_000_000, "float32")
     assert b["bound_by"] == "operations"
     assert b["bound_s"] == pytest.approx(2.5e7 / 67e12, rel=1e-12)
     # 1e8 bytes: 29.85 us, bytes bound
-    b = peaks.bound_of(1_000_000, 25, 100_000_000, "float32")
+    b = peaks.bound_of(1_000_000 * 25, 100_000_000, "float32")
     assert b["bound_by"] == "bytes"
     assert b["bound_s"] == pytest.approx(1e8 / 3.35e12, rel=1e-12)
     # rows: 1000 rows x 249 ops added to the pairs' operations, in f64
-    b = peaks.bound_of(10, 100, 0, "float64", row_ops=249_000)
+    b = peaks.bound_of(10 * 100 + 1000 * 249, 0, "float64")
     assert b["bound_s"] == pytest.approx((1000 + 249_000) / 34e12)
 
 
 def test_kernel_bound_reads_the_work_files():
     # lj_cell_force on 1,024,000 atoms and 28.3M pairs: 7.075e8 ops at
     # 67 TFLOP/s (10.56 us) against 24.576 MB at 3.35 TB/s (7.34 us)
-    b = peaks.kernel_bound("lj_cell_force", 28_300_000, 1_024_000,
-                           "float32")
+    b = peaks.kernel_bound("lj_cell_force", {"pairs": 28_300_000,
+                                             "atoms": 1_024_000}, "float32")
     assert b["bound_by"] == "operations"
     assert b["bound_s"] == pytest.approx(28_300_000 * 25 / 67e12)
     w = peaks.kernel_work("eam_cell_rho")
@@ -96,17 +98,18 @@ def test_kernel_bound_reads_the_work_files():
 
 def test_kernel_share_is_silent_without_the_kernel():
     traced = {"kernels": {"lj_cell_force": {"total_s": 2e-3, "calls": 2}}}
-    share = peaks.kernel_share("lj_cell_force", traced, 1000, 100,
-                               "float32")
-    bound = peaks.kernel_bound("lj_cell_force", 1000, 100, "float32")
+    counts = {"pairs": 1000, "atoms": 100}
+    share = peaks.kernel_share("lj_cell_force", traced, counts, "float32")
+    bound = peaks.kernel_bound("lj_cell_force", counts, "float32")
     assert share == pytest.approx(100 * bound["bound_s"] / 1e-3)
-    assert peaks.kernel_share("eam_cell_rho", traced, 1000, 100,
+    assert peaks.kernel_share("eam_cell_rho", traced, counts,
                               "float32") is None
 
 
 def test_deck_generator():
     config = json.loads((ROOT / "configs" / "eam-cu.json").read_text())
-    lines, steps = decks.make_deck(config, 2**31 + 5, "/x/pot.eam")
+    lines, steps = decks.make_deck(config, 2**31 + 5, "/x/pot.eam",
+                                   decks.CONFIGS)
     assert steps == config["run"] == 100
     vel = [ln for ln in lines if ln.startswith("velocity")]
     assert vel == [f"velocity all create 1600.0 {(2**31 + 5) % (2**31 - 2) + 1}"
@@ -116,17 +119,15 @@ def test_deck_generator():
     assert decks.deck_seed(0) == 1 and decks.deck_seed(2**31 - 3) == 2**31 - 2
 
 
-@pytest.mark.parametrize("name", ["lj-melt", "eam-cu", "eam-cu-fp64"])
-def test_config_numbers_match_the_deck(name):
-    config = json.loads((ROOT / "configs" / f"{name}.json").read_text())
-    text = (ROOT / "configs" / config["deck"]).read_text()
-
+def check_deck(config: dict, text: str):
+    """The configuration's numbers against the words of its deck."""
     def words(cmd):
         return next(ln.split()[1:] for ln in text.splitlines()
                     if ln.split()[:1] == [cmd])
 
     assert words("units") == [config["units"]]
-    assert words("lattice") == ["fcc", repr(config["lattice"]["scale"])]
+    assert words("lattice") == [config["lattice"]["style"],
+                                repr(config["lattice"]["scale"])]
     assert float(words("velocity")[2]) == config["velocity"]["temp"]
     assert int(words("velocity")[3]) == config["velocity"]["seed"]
     nb = config["neighbor"]
@@ -139,11 +140,20 @@ def test_config_numbers_match_the_deck(name):
         assert float(words("timestep")[0]) == config["timestep"]
     if "thermo " in text:
         assert int(words("thermo")[0]) == config["thermo"]
+    assert words("pair_style")[0] == config["pair"]["style"]
     if config["pair"]["style"] == "lj/cut":
-        assert words("pair_style") == ["lj/cut", "2.5"]
+        assert [float(v) for v in words("pair_style")[1:]] == [
+            config["pair"]["cutoff"]]
         assert [float(v) for v in words("pair_coeff")[2:]] == [
             config["pair"]["epsilon"], config["pair"]["sigma"],
             config["pair"]["cutoff"]]
+
+
+@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
+def test_config_numbers_match_the_deck(entry):
+    path = ROOT.parent / entry["file"]
+    config = json.loads(path.read_text())
+    check_deck(config, (path.parent / config["deck"]).read_text())
 
 
 def test_mix_sizes():
@@ -159,7 +169,8 @@ def test_mix_sizes():
 
 def test_potential_file_and_tables(tmp_path):
     spec = json.loads((ROOT / "configs" / "eam-cu.json").read_text())
-    path = write_funcfl(tmp_path / "cu.eam", spec["potential"])
+    path = decks.potential(spec, decks.CONFIGS, tmp_path)
+    assert Path(path) == tmp_path / "Cu_u3.eam"
     head = Path(path).read_text().splitlines()
     assert head[1].split()[:3] == ["29", "63.55", "3.615"]
     assert head[2].split()[0] == "500" and head[2].split()[2:] == [
