@@ -100,7 +100,19 @@ checks them on the card:
      its twin there too), k1 (P7's instance) and k2 on phase 13's grids
      and planted pairs, P1 in both modes at G = 512 and G = 128, and each
      kernel's device time per call (P12's bound: every lane-pair's r2 and
-     cutoff test, the work the probe defines).
+     cutoff test, the work the probe defines);
+ 17. the Tersoff kernels against their plain twins on the sorted state of
+     bench/POTENTIALS/in.tersoff at 32k (grid 22 x 22 x 9) and at 1M (x 4
+     y 2 z 4, grid 100 x 48 x 48, cc 16), S 16, f32 and f64, positions
+     jittered by a seeded +-0.1 A: the short list entry for entry, the
+     force pass's forces, and the tally instance's forces, pe plane, virial
+     planes and their sums over the valid rows (the f32 virial as accurate
+     as the f32 twin against an f64 evaluation), and its forces against
+     the step instance's; each kernel's device time, plain time and bound.
+     Then the 1M deck's own `run 100` at thermo 10, float64, the main path
+     of the cell tersoff-si-fp64.1m: one short list a force pass, the step
+     kernel once per step and the tally instance once per thermo row,
+     drift, the slope-timed step rate and a torch.profiler split.
 
 The `[rank]` lines order the kernels for redesign: the decks' kernels by
 launches per step times device time above the bound at each deck's size,
@@ -158,6 +170,16 @@ EAM_REPLACES = {  # K4, K5
     "eam_cell_force_tally": "lammps_kokkos_port_tpu/ops/eamdense.py:143",
 }
 EAM_KERNELS = tuple(EAM_REPLACES)
+TERSOFF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/tersoff_cell.cu"
+# No pallas_call: the JAX package forms Tersoff's [N, K, K] neighbour table
+# and takes the forces (and, for rows, the energy and virial) as jax.grad
+# of one energy, in XLA
+TERSOFF_REPLACES = {
+    "tersoff_short": "lammps_kokkos_port_tpu/models/pair_tersoff.py:81",
+    "tersoff_force": "lammps_kokkos_port_tpu/models/pair_tersoff.py:169",
+    "tersoff_force_tally": "lammps_kokkos_port_tpu/models/pair_tersoff.py:169",
+}
+TERSOFF_KERNELS = tuple(TERSOFF_REPLACES)
 COLUMN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_full.cu"
 HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_plane_half.cu"
 ABLATE_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_ablate.cu"
@@ -222,6 +244,28 @@ EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
 EAM_E_ROW_OPS = (2 + 3 * 81) + 3
 EAM_FORCE_TALLY_PAIR_OPS = EAM_FORCE_PAIR_OPS + (2 + 3 * 29) + 1 + 6 * 3
 EAM_TALLY_ROW_OPS = 7 + 1
+# Tersoff, as bench_port/roofline/kernels/tersoff_*.json count it (the
+# derivations are there): the short list 18 a pair within R + D; the force
+# pass 126 a pair and 95 an ordered triplet. The tally instance adds, per
+# ordered pair, the energy 5, two pair virials 2 x 18 and seven atomic adds,
+# and per ordered triplet v_tally3's six components 4 each. Bytes per
+# atom: the short list's positions and mask in, four entries and the count
+# out; the force pass's positions, lists and counts in, forces out; the
+# tally's seven planes besides.
+TERSOFF_SHORT_PAIR_OPS = 18
+TERSOFF_FORCE_PAIR_OPS = 126
+TERSOFF_TRIPLET_OPS = 95
+TERSOFF_TALLY_PAIR_OPS = TERSOFF_FORCE_PAIR_OPS + 2 * (5 + 2 * 18 + 7)
+TERSOFF_TALLY_TRIPLET_OPS = TERSOFF_TRIPLET_OPS + 6 * 4
+TERSOFF_SHORT_BYTES = {"float32": 36, "float64": 48}
+TERSOFF_FORCE_BYTES = {"float32": 44, "float64": 68}
+TERSOFF_TALLY_BYTES = {"float32": 44 + 7 * 4, "float64": 68 + 7 * 8}
+# the deck's run and thermo cadence (bench/POTENTIALS/in.tersoff)
+TERSOFF_STEPS = 100
+TERSOFF_THERMO = 10
+# |etotal drift| per atom over TERSOFF_STEPS, eV: a sanity bound, as
+# EAM_DRIFT_BOUND
+TERSOFF_DRIFT_BOUND = 0.01
 # the kernels redesigned for Hopper: on the shared candidate walk
 # (csrc/cell_walk.cuh), and the P9 and P4 pair ablations with more rows in
 # flight (lj_ablate, whose line's times are pair_only's, and
@@ -1998,6 +2042,220 @@ def phase_last_sites(dev) -> dict:
     return out
 
 
+def tersoff_kernels_vs_plain(sim, dtype, label: str,
+                             plain_reps: int = 5) -> dict:
+    """Phase 17 on one grid and dtype: the short list, the force pass and
+    the tally instance against their plain twins on the same inputs (the
+    sim's positions jittered by a seeded +-0.1 A, cast to `dtype`; the
+    twins run on the same CUDA tensors). Returns {kernel name: numbers}
+    for the kernel line.
+
+    Tolerances (as tests/test_torch_tersoff_cuda.py): the short list is
+    exact (the kernel rounds r2 as the twin does and appends in its walk
+    order); forces rtol 1e-10 f64, 1e-4 f32 (atomics land j's and k's
+    terms in a changing order, the twin sums in another); the tally's pe
+    plane and f64 virial planes as the forces, their sums over the valid
+    rows rel 1e-10 f64, 1e-5 f32; the f32 virial planes and sums as
+    accurate as the f32 twin against an f64 evaluation; the tally's
+    forces against the step instance's to the atomics' rounding (1e-12
+    f64, 1e-5 f32)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import tersoff_kernels as tk
+    from lammps_kokkos_port_tpu_torch.prof.redesign import jittered
+
+    st, p, style = sim.state, sim.nl.params, sim.pair_style
+    x = jittered(sim, dtype, 0.1).contiguous()
+    mask, prd, valid = st.mask, st.box.prd.to(dtype), st.valid_mask
+    S = sim.nl.short_cap
+    cutsq = style.max_cutoff() ** 2
+    par = style.kernel_params()
+    overflow = torch.zeros((), dtype=torch.bool, device=x.device)
+    need = torch.zeros((), dtype=torch.int32, device=x.device)
+    short, nshort = tk.tersoff_short(cutsq, p.ncells, x, mask, prd, S,
+                                     overflow, need)
+    r_short, r_n, counts = tk.tersoff_short_reference(cutsq, p.ncells, x,
+                                                      mask, prd, S)
+    used = torch.arange(S, device=x.device)[None, :] < r_n[:, None]
+    if not (torch.equal(nshort, r_n) and torch.equal(short[used],
+                                                     r_short[used])):
+        raise RuntimeError(f"{label} tersoff_short: another list than the "
+                           f"twin's ({int((nshort != r_n).sum())} counts "
+                           "apart)")
+    if bool(overflow) or int(need) != 0 or int(counts.max()) > S:
+        raise RuntimeError(f"{label} tersoff_short: a list longer than {S}")
+    del r_short, r_n, counts, used
+    n = nshort.long()
+    atoms = int(valid.sum())
+    pairs, triplets = int(n.sum()) // 2, int((n * (n - 1)).sum())
+
+    rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    sum_rtol = 1e-5 if dtype == torch.float32 else 1e-10
+    f = tk.tersoff_force(par, x, short, nshort, prd)
+    f_ref, tally_ref = tk.tersoff_force_reference(par, x, short, nshort, prd,
+                                                  tally=True)
+    errs = {"tersoff_short": 0.0,
+            "tersoff_force": check_close(f"{label} tersoff_force", f, f_ref,
+                                         rtol)}
+    f_t, tally = tk.tersoff_force_tally(par, x, short, nshort, prd)
+    errs["tersoff_force_tally"] = max(
+        check_close(f"{label} tersoff_force_tally forces", f_t, f_ref, rtol),
+        check_close(f"{label} tersoff_force_tally pe plane", tally[0],
+                    tally_ref[0], rtol))
+    sums = tk.tally_sums(tally, valid)
+    sums_ref = tk.tally_sums(tally_ref, valid)
+    pe_gap = abs(sums[0].item() / sums_ref[0].item() - 1)
+    if pe_gap > sum_rtol:
+        raise RuntimeError(f"{label} tally pe {sums[0].item():.17g} against "
+                           f"the twin's {sums_ref[0].item():.17g}: rel "
+                           f"{pe_gap:.3e} > {sum_rtol:g}")
+    if dtype == torch.float64:
+        vir_err = check_close(f"{label} tersoff_force_tally virial planes",
+                              tally[1:], tally_ref[1:], rtol)
+        check_close(f"{label} tally virial sums", sums[1:], sums_ref[1:],
+                    sum_rtol)
+    else:
+        # the f32 virial's terms cancel: held to an f64 evaluation of the
+        # same inputs, as accurate as the f32 twin
+        exact = tk.tersoff_force_reference(par, x.double(), short, nshort,
+                                           prd.double(), tally=True)[1]
+        vir_err = check_as_accurate(
+            f"{label} tersoff_force_tally virial planes", tally[1:],
+            tally_ref[1:], exact[1:], 1e-4)
+        check_as_accurate(f"{label} tally virial sums", sums[1:],
+                          sums_ref[1:], tk.tally_sums(exact, valid)[1:],
+                          1e-5)
+        del exact
+    step_apart = check_close(
+        f"{label} tersoff_force_tally forces vs tersoff_force", f_t, f,
+        1e-5 if dtype == torch.float32 else 1e-12)
+    log(f"[tally] {label}: pe {sums[0].item():.17g} (twin "
+        f"{sums_ref[0].item():.17g}, rel {pe_gap:.3e}); virial "
+        f"{[round(v, 6) for v in sums[1:].tolist()]} (twin max abs apart "
+        f"{(sums[1:] - sums_ref[1:]).abs().max().item():.3e}); planes' max "
+        f"abs err {vir_err:.3e}; forces vs the step instance's max abs "
+        f"{step_apart:.3e}")
+    del f, f_ref, tally_ref, f_t, tally
+    torch.cuda.empty_cache()
+
+    calls = {
+        "tersoff_short": lambda: tk.tersoff_short(
+            cutsq, p.ncells, x, mask, prd, S, overflow, need),
+        "tersoff_force": lambda: tk.tersoff_force(par, x, short, nshort,
+                                                  prd),
+        "tersoff_force_tally": lambda: tk.tersoff_force_tally(
+            par, x, short, nshort, prd)}
+    dev = device_ms(calls)
+    plain = {name: cuda_ms(fn, reps=plain_reps, warmup=1) for name, fn in (
+        ("tersoff_short", lambda: tk.tersoff_short_reference(
+            cutsq, p.ncells, x, mask, prd, S)),
+        ("tersoff_force", lambda: tk.tersoff_force_reference(
+            par, x, short, nshort, prd)),
+        ("tersoff_force_tally", lambda: tk.tersoff_force_reference(
+            par, x, short, nshort, prd, tally=True)))}
+    log(f"[tersoff plain memory] {label}: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    key = str(dtype).split(".")[-1]
+    bounds = {
+        "tersoff_short": bound_of(pairs, TERSOFF_SHORT_PAIR_OPS,
+                                  atoms * TERSOFF_SHORT_BYTES[key], dtype),
+        "tersoff_force": bound_of(
+            pairs, TERSOFF_FORCE_PAIR_OPS, atoms * TERSOFF_FORCE_BYTES[key],
+            dtype, row_ops=triplets * TERSOFF_TRIPLET_OPS),
+        "tersoff_force_tally": bound_of(
+            pairs, TERSOFF_TALLY_PAIR_OPS, atoms * TERSOFF_TALLY_BYTES[key],
+            dtype, row_ops=triplets * TERSOFF_TALLY_TRIPLET_OPS)}
+    out = {}
+    for name in TERSOFF_KERNELS:
+        b = bounds[name]
+        log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
+            f"({x.shape[0]} rows, {atoms} atoms), S {S}, max abs err "
+            f"{errs[name]:.3e} (rtol {rtol:g}), device {dev[name]:.4f} ms, "
+            f"plain {plain[name]:.4f} ms, {pairs} pairs and {triplets} "
+            f"ordered triplets within R + D, bound {b['bound_ms']:.4g} ms "
+            f"({b['bound_by']})")
+        out[name] = {"max_abs_err": errs[name], "ms": dev[name],
+                     "device_ms": dev[name], "plain_ms": plain[name],
+                     "triplets": triplets, **b}
+    out["tersoff_force_tally"]["virial_max_abs_err"] = vir_err
+    return out
+
+
+def phase_tersoff(dev) -> tuple[list, list]:
+    """Phase 17: the Tersoff kernels against their twins at 32k and 1M, f32
+    and f64, then the 1M deck's run through the main path with the three
+    launch counters zeroed just before it. Returns (the kernel line's
+    entries, the rank's terms)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import sortedforce
+    from lammps_kokkos_port_tpu_torch.ops import tersoff_kernels as tk
+    from lammps_kokkos_port_tpu_torch.prof.tersoff import deck_sim
+
+    t0 = time.perf_counter()
+    sim32 = deck_sim(torch.float64, "32k", dev)
+    log(f"[setup] tersoff-32k f64 deck {time.perf_counter() - t0:.1f} s, "
+        f"grid {sim32.nl.params.ncells} x cc {sim32.nl.params.cell_cap}")
+    at32 = tersoff_kernels_vs_plain(sim32, torch.float32, "tersoff-32k f32")
+    tersoff_kernels_vs_plain(sim32, torch.float64, "tersoff-32k f64")
+    del sim32
+    t0 = time.perf_counter()
+    sim = deck_sim(torch.float64, "1m", dev)
+    log(f"[setup] tersoff-1m f64 deck {time.perf_counter() - t0:.1f} s, "
+        f"{sim.state.nlocal} atoms, grid {sim.nl.params.ncells} x cc "
+        f"{sim.nl.params.cell_cap}, S {sim.nl.short_cap}")
+    tersoff_kernels_vs_plain(sim, torch.float32, "tersoff-1m f32",
+                             plain_reps=2)
+    at1m = tersoff_kernels_vs_plain(sim, torch.float64, "tersoff-1m f64",
+                                    plain_reps=2)
+
+    # the main path: the deck's run, launches counted from zero
+    params0, cap0 = sim.nl.params, sim.nl.short_cap
+    for name in TERSOFF_KERNELS:
+        getattr(tk, name).launches = 0
+    t0 = time.perf_counter()
+    rows = sim.run(TERSOFF_STEPS, thermo_every=TERSOFF_THERMO)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    launches = {name: getattr(tk, name).launches for name in TERSOFF_KERNELS}
+    log(f"[tersoff-1m] run({TERSOFF_STEPS}): launches {launches}, nbuilds "
+        f"{sim.nl.nbuilds}, loop {loop:.3f} s incl. {len(rows)} thermo "
+        f"rows, grid {sim.nl.params.ncells} x cc {sim.nl.params.cell_cap}, "
+        f"S {sim.nl.short_cap}")
+    n_short, n_force, n_tally = launches.values()
+    grown = sim.nl.params != params0 or sim.nl.short_cap != cap0
+    # the step kernel once per step (an overflow retry re-runs a segment's
+    # steps), the tally instance once per thermo row, a short list before
+    # each force pass of either kind
+    if n_force < TERSOFF_STEPS or (n_force != TERSOFF_STEPS and not grown):
+        raise RuntimeError(f"tersoff_force not launched once per step: "
+                           f"{launches} over {TERSOFF_STEPS} steps")
+    if n_tally != len(rows):
+        raise RuntimeError(f"tersoff_force_tally not launched once per "
+                           f"thermo row: {launches} over {len(rows)} rows")
+    if n_short != n_force + n_tally:
+        raise RuntimeError(f"tersoff_short not launched once per force "
+                           f"pass: {launches}")
+    check_run(sim, rows, "tersoff-1m", bound=TERSOFF_DRIFT_BOUND)
+    step = step_rate(sim, TERSOFF_THERMO, "tersoff-1m")
+    profile_segment(sim, TERSOFF_THERMO, step, "tersoff-1m",
+                    ("tersoff_short", "tersoff_force"),
+                    {"rebin": [(sortedforce, "needs_rebuild"),
+                               (sortedforce, "rebuild_if")]})
+    del sim
+    torch.cuda.empty_cache()
+    entries = [{"name": name, "route": "cuda", "source": TERSOFF_SOURCE,
+                "replaces": TERSOFF_REPLACES[name],
+                "launches": launches[name], "at": "32k f32", **at32[name],
+                "at_1m_f64": {k: at1m[name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}}
+               for name in TERSOFF_KERNELS]
+    terms = [(name, "tersoff-1m", launches[name] / TERSOFF_STEPS, at1m[name])
+             for name in TERSOFF_KERNELS]
+    return entries, terms
+
+
 def rank(kernels: list, decks: list) -> None:
     """The redesign queue's order, as two lines. First any kernel slower
     than its library call. `[rank]`: the decks' kernels, each by its
@@ -2049,7 +2307,7 @@ def main() -> int:
                                                   column_kernels, cuda_build,
                                                   eam_kernels, eamdense,
                                                   half_kernels, pair_kernels,
-                                                  sortedforce)
+                                                  sortedforce, tersoff_kernels)
     from lammps_kokkos_port_tpu_torch.ops.eamdense import embedding_fp
     from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
                                                    column_half_kernels,
@@ -2076,7 +2334,7 @@ def main() -> int:
                                   half_kernels.SOURCE, ablate_kernels.SOURCE,
                                   column_half_kernels.SOURCE,
                                   dynslice_kernels.SOURCE,
-                                  zwin_kernels.SOURCE)
+                                  zwin_kernels.SOURCE, tersoff_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -2313,6 +2571,8 @@ def main() -> int:
     prof.update(phase_plane_half(dev))
     column = phase_column_half(dev)
     last = phase_last_sites(dev)
+    # 17. Tersoff: the kernels and the 1M deck's main path
+    tersoff, tersoff_terms = phase_tersoff(dev)
 
     kernels = [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2336,6 +2596,7 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": LAST_SITES[name][0],
            "replaces": LAST_SITES[name][1], **entry}
           for name, entry in last.items()),
+        *tersoff,
     ]
     rank(kernels, [
         ("lj_cell_force", "lj-32k", launches / 1000, main_cell),
@@ -2343,7 +2604,7 @@ def main() -> int:
         *((name, "eam-32k", eam_launches[name] / EAM_STEPS, eam_cells[name])
           for name in EAM_KERNELS),
         ("lj_cell_dense", "lj-1m-cell", cell_launches / DECK_STEPS,
-         main_dense)])
+         main_dense), *tersoff_terms])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

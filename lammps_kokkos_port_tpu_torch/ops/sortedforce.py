@@ -35,6 +35,9 @@ from . import neighbor as nbr
 # of 16 stay exactly representable across multi-million-row capacities)
 PAD_POS = 1.0e8
 PAD_STEP = 16.0
+# the first width of a three-body style's short list: diamond Si has 4
+# neighbours within Tersoff's R + D; the grow-retry widens it
+SHORT_CAP = 16
 
 
 def _pad_x(cap: int, dtype, device) -> torch.Tensor:
@@ -56,6 +59,14 @@ class SortedCells:
     is a sticky 0-d bool tensor on the device. `xhold` holds the positions
     of the last rebuild, for the distance check (`needs_rebuild`). (The
     JAX version's `ndanger` counter is not ported.)
+
+    A three-body style (ops/tersoff_kernels) builds a short list of `short_cap`
+    neighbours a row at each force pass. `short_need` is a 0-d int32 tensor
+    made at `build` and carried by reference through every rebuild of the
+    segment: the short-list kernel raises it, in place, to the count of a
+    row that did not fit (and sets `overflow`), so the host's grow-retry
+    can tell a short-list overflow from a cell overflow
+    (runner._grow_params).
     """
 
     ago: int | torch.Tensor
@@ -63,6 +74,8 @@ class SortedCells:
     overflow: torch.Tensor
     params: nbr.NeighborParams
     xhold: torch.Tensor | None = None
+    short_cap: int = SHORT_CAP
+    short_need: torch.Tensor | None = None
 
 
 def expand_state(state: State, p: nbr.NeighborParams) -> State:
@@ -227,11 +240,13 @@ def _permute(state: State, p: nbr.NeighborParams):
 
 
 @trace.spanned("neigh")
-def build(state: State, p: nbr.NeighborParams):
+def build(state: State, p: nbr.NeighborParams, short_cap: int = SHORT_CAP):
     """Sort the (already expanded) state; returns (state, SortedCells)."""
     state, overflow = _permute(state, p)
-    return state, SortedCells(ago=0, nbuilds=1, overflow=overflow, params=p,
-                              xhold=state.x)
+    return state, SortedCells(
+        ago=0, nbuilds=1, overflow=overflow, params=p, xhold=state.x,
+        short_cap=short_cap,
+        short_need=torch.zeros((), dtype=torch.int32, device=state.device))
 
 
 @trace.spanned("neigh")
@@ -244,7 +259,9 @@ def rebuild_state(state: State, old: SortedCells):
     state, overflow = _apply_perm(state, newpos, overflow)
     return state, SortedCells(ago=0, nbuilds=old.nbuilds + 1,
                               overflow=old.overflow | overflow,
-                              params=old.params, xhold=state.x)
+                              params=old.params, xhold=state.x,
+                              short_cap=old.short_cap,
+                              short_need=old.short_need)
 
 
 def tick(cl: SortedCells) -> SortedCells:
@@ -293,7 +310,8 @@ def rebuild_if(state: State, cl: SortedCells, rebuild: torch.Tensor):
         ago=torch.where(rebuild, 0, cl.ago + 1),
         nbuilds=cl.nbuilds + rebuild.to(cl.nbuilds.dtype),
         overflow=cl.overflow | (rebuild & overflow), params=cl.params,
-        xhold=torch.where(rebuild, state.x, cl.xhold))
+        xhold=torch.where(rebuild, state.x, cl.xhold),
+        short_cap=cl.short_cap, short_need=cl.short_need)
 
 
 def read_back(cl: SortedCells) -> tuple[bool, SortedCells]:
@@ -315,14 +333,18 @@ def planar(a: torch.Tensor) -> torch.Tensor:
 
 def compute(style, state: State, cl: SortedCells, eflag: bool, vflag: bool):
     """(f, pe, virial) in the sorted layout. Dense two-pass styles (EAM)
-    go to ops/eamdense. For pair_terms styles the force-only pass goes
-    through the CUDA cell kernel; energy/virial passes (thermo steps) take
-    the plain PyTorch grid path (ops/gridforce), as the JAX package took
-    its XLA path there."""
+    go to ops/eamdense, three-body styles (Tersoff) to ops/tersoff_kernels.
+    For pair_terms styles the force-only pass goes through the CUDA cell
+    kernel; energy/virial passes (thermo steps) take the plain PyTorch grid
+    path (ops/gridforce), as the JAX package took its XLA path there."""
     if getattr(style, "dense_two_pass", False):
         from . import eamdense
 
         return eamdense.compute(style, state, cl, eflag, vflag)
+    if getattr(style, "three_body", False):
+        from . import tersoff_kernels
+
+        return tersoff_kernels.compute(style, state, cl, eflag, vflag)
 
     p = cl.params
     cap = state.capacity

@@ -70,6 +70,9 @@ class Simulation:
         self.thermo_norm: bool | None = None  # thermo_modify norm
         self.ntimestep = 0
         self._segment_runner = None
+        # the short-list width of a three-body style (sorted mode), grown
+        # by _grow_params like cell_cap
+        self.short_cap = sortedforce.SHORT_CAP
 
     # -- forces -------------------------------------------------------------
 
@@ -103,6 +106,14 @@ class Simulation:
             self.nl = self._build_list(self.state, params)
         self._check_overflow_and_grow()
         self.presetup_forces()
+        if bool(self.nl.overflow):
+            # a force pass that overflowed a list of its own (a three-body
+            # style's short list): grow it and evaluate again
+            self._check_overflow_and_grow()
+            self.presetup_forces()
+            if bool(self.nl.overflow):
+                raise RuntimeError("the setup force pass still overflows "
+                                   "after growing its lists")
 
     def presetup_forces(self):
         """The setup force pass, and the `run ... pre yes` pass between
@@ -117,10 +128,11 @@ class Simulation:
         dense two-pass style (single-element EAM). The cell-major sorted
         mode needs a single-type lj/cut style, or a dense two-pass style
         with list_mode "sorted" (the JAX package runs EAM on its
-        exact-spline matrix engine in mode "auto"). Both need a fully
-        periodic orthogonal box. The JAX package falls back to other
-        engines otherwise; those are not ported, so this raises instead of
-        drifting onto another path."""
+        exact-spline matrix engine in mode "auto"), or a three-body style
+        (Tersoff) in mode "auto" or "sorted". All need a fully periodic
+        orthogonal box. The JAX package falls back to other engines
+        otherwise; those are not ported, so this raises instead of drifting
+        onto another path."""
         pair = self.pair_style
         box = self.state.box
         if not all(box.periodic) or box.triclinic:
@@ -141,12 +153,12 @@ class Simulation:
                     "EAM in list mode 'auto' runs the exact-spline matrix "
                     "engine in the JAX package, which is not ported; pass "
                     "list_mode='sorted' for the dense Chebyshev path")
-        else:
+        elif not getattr(pair, "three_body", False):
             kk = getattr(pair, "kernel_key", None)
             if kk is None or kk() is None:
                 raise NotImplementedError(
-                    "sorted mode needs a single-type lj/cut style or a "
-                    "single-element EAM style")
+                    "sorted mode needs a single-type lj/cut style, a "
+                    "single-element EAM style or a three-body style")
         self.list_mode = "sorted"
 
     def _build_list(self, state, params):
@@ -155,7 +167,7 @@ class Simulation:
         # sorted mode owns the state layout: expand to the cell-major
         # capacity and permute (self.state is replaced)
         state = sortedforce.expand_state(state, params)
-        state, nl = sortedforce.build(state, params)
+        state, nl = sortedforce.build(state, params, self.short_cap)
         self.state = state
         return nl
 
@@ -218,10 +230,19 @@ class Simulation:
 
     def _grow_params(self, params):
         """Sorted mode: occupancy-aware growth, measuring the capacity the
-        current state needs instead of multiplying blindly. Cell mode: the
+        current state needs instead of multiplying blindly; where the
+        overflow was a three-body style's short list (the list's
+        `short_need`, the longest list that did not fit), the short list
+        alone is widened, counted on `neigh.short_grows`. Cell mode: the
         plain x1.3 growth of neighbor.grow."""
         if self.list_mode == "cell":
             return nbr.grow(params)
+        need = getattr(self.nl, "short_need", None)
+        if need is not None and int(need) > 0:
+            trace.count("neigh.short_grows")
+            self.short_cap = max(-(-int(need) // 8) * 8,
+                                 self.nl.short_cap + 8)
+            return params
         counts = np.bincount(
             nbr._cell_ids_host(self.state, params.ncells),
             minlength=params.total_cells + 1)[:-1]

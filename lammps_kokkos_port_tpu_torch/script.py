@@ -14,7 +14,8 @@ Ported commands:
     atom_modify, lattice (style and scale), region (block, units/side),
     create_box, create_atoms (box, region, single), mass, velocity create
     (loop all/geom, dist uniform/gaussian);
-  - styles: pair_style lj/cut and eam, pair_coeff, neighbor (bin),
+  - styles: pair_style lj/cut, eam and tersoff (one element),
+    pair_coeff, neighbor (bin),
     neigh_modify (every, delay, check), fix nve (group all), unfix,
     timestep;
   - output and run: thermo, thermo_style one/custom, thermo_modify norm,
@@ -631,7 +632,14 @@ class LammpsScript:
     # -- style commands ------------------------------------------------------
 
     def cmd_pair_style(self, a):
-        if a[0] not in ("lj/cut", "eam"):
+        if a[0].startswith("tersoff/"):
+            raise NotImplementedError(
+                f"pair_style {a[0]}: only plain tersoff is ported")
+        if a[0] == "tersoff" and len(a) > 1:
+            raise NotImplementedError(
+                f"pair_style tersoff {' '.join(a[1:])}: its keywords "
+                "(shift) are not ported")
+        if a[0] not in ("lj/cut", "eam", "tersoff"):
             raise _not_ported(f"pair_style {a[0]}")
         self._sync_from_sim()
         self.pair_style_words = a
@@ -922,6 +930,14 @@ class LammpsScript:
             pair = make_lj_cut(self.ntypes, self._pair_coeff_dict(),
                                float(args[0]), dtype=self.dtype,
                                device=self.device)
+        elif name == "tersoff":
+            from .models.pair_tersoff import make_tersoff
+
+            c = self.pair_coeffs[-1] if self.pair_coeffs else []
+            if c[:2] != ["*", "*"] or len(c) < 4:
+                raise ScriptError("pair_coeff for tersoff: * * <file> "
+                                  "<element per type>")
+            pair = make_tersoff(self.ntypes, c[2], c[3:])
         else:  # eam (cmd_pair_style admits nothing else)
             from .models.pair_eam import make_eam_funcfl
 
