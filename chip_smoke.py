@@ -112,7 +112,18 @@ checks them on the card:
      Then the 1M deck's own `run 100` at thermo 10, float64, the main path
      of the cell tersoff-si-fp64.1m: one short list a force pass, the step
      kernel once per step and the tally instance once per thermo row,
-     drift, the slope-timed step rate and a torch.profiler split.
+     drift, the slope-timed step rate and a torch.profiler split;
+ 18. the sorted layout's re-bin kernels (csrc/sorted_rebin.cu) against
+     their plain versions at the 1M Tersoff grid (100 x 48 x 48, cc 16)
+     and the 1M EAM grid (cells 63, re-sorted with 16 more rows a cell:
+     its setup leaves full cells), f32 and f64, the segment's state
+     with positions jittered by a seeded +-0.2 of a cell: the decision on
+     and off the cadence, a step that does not rebuild (the state as it
+     was, bit for bit) and one that does (every array and the list bit
+     for bit); each kernel's device time on a rebuild step and on one
+     that is not, the plain versions' times and the bounds
+     (prof/rebin.py); the launches of each over the 1M Tersoff deck's
+     `run 100`, one a step.
 
 The `[rank]` lines order the kernels for redesign: the decks' kernels by
 launches per step times device time above the bound at each deck's size,
@@ -180,6 +191,10 @@ TERSOFF_REPLACES = {
     "tersoff_force_tally": "lammps_kokkos_port_tpu/models/pair_tersoff.py:169",
 }
 TERSOFF_KERNELS = tuple(TERSOFF_REPLACES)
+REBIN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/sorted_rebin.cu"
+# No pallas_call: the JAX package re-bins in XLA, under the step's lax.cond
+REBIN_REPLACES = ("lammps_kokkos_port_tpu/ops/sortedforce.py:114 (_local_perm"
+                  ", _apply_perm :215, needs_rebuild :328)")
 COLUMN_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_column_full.cu"
 HALF_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_plane_half.cu"
 ABLATE_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/lj_ablate.cu"
@@ -2188,7 +2203,7 @@ def phase_tersoff(dev) -> tuple[list, list]:
     entries, the rank's terms)."""
     import torch
 
-    from lammps_kokkos_port_tpu_torch.ops import sortedforce
+    from lammps_kokkos_port_tpu_torch.ops import rebin_kernels
     from lammps_kokkos_port_tpu_torch.ops import tersoff_kernels as tk
     from lammps_kokkos_port_tpu_torch.prof.tersoff import deck_sim
 
@@ -2239,9 +2254,8 @@ def phase_tersoff(dev) -> tuple[list, list]:
     check_run(sim, rows, "tersoff-1m", bound=TERSOFF_DRIFT_BOUND)
     step = step_rate(sim, TERSOFF_THERMO, "tersoff-1m")
     profile_segment(sim, TERSOFF_THERMO, step, "tersoff-1m",
-                    ("tersoff_short", "tersoff_force"),
-                    {"rebin": [(sortedforce, "needs_rebuild"),
-                               (sortedforce, "rebuild_if")]})
+                    ("tersoff_short", "tersoff_force",
+                     *rebin_kernels.KERNELS), {})
     del sim
     torch.cuda.empty_cache()
     entries = [{"name": name, "route": "cuda", "source": TERSOFF_SOURCE,
@@ -2253,6 +2267,154 @@ def phase_tersoff(dev) -> tuple[list, list]:
                for name in TERSOFF_KERNELS]
     terms = [(name, "tersoff-1m", launches[name] / TERSOFF_STEPS, at1m[name])
              for name in TERSOFF_KERNELS]
+    return entries, terms
+
+
+def rebin_kernels_vs_plain(sim, dtype, label: str, slack: int = 0,
+                           plain_reps: int = 3) -> dict:
+    """Phase 18 on one grid and dtype: the re-bin kernels against their
+    plain versions on the sim's segment state cast to `dtype` (with
+    `slack` more rows a cell), positions jittered by a seeded +-0.2 of a
+    cell (prof/rebin.segment_state), all
+    exact: the decision on and off the cadence; a step that does not
+    rebuild (every array and the list as they were, ago + 1); a rebuild
+    step (every array, xhold, ago, nbuilds and the overflow flag as the
+    plain version's on copies of the same inputs). Then the timings of
+    prof/rebin.timings. Returns {kernel name: numbers} for the kernel
+    line."""
+    import dataclasses
+
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import rebin_kernels as rk
+    from lammps_kokkos_port_tpu_torch.ops import sortedforce as sf
+    from lammps_kokkos_port_tpu_torch.prof import rebin as prof_rebin
+
+    fields = ("x", "v", "f", "type", "tag", "image", "mask")
+    st, nl = prof_rebin.segment_state(sim, dtype, slack)
+    dev = st.device
+
+    def copies(st, nl):
+        return (st.replace(**{k: getattr(st, k).clone() for k in fields}),
+                dataclasses.replace(nl, ago=nl.ago.clone(),
+                                    nbuilds=nl.nbuilds.clone(),
+                                    overflow=nl.overflow.clone(),
+                                    xhold=nl.xhold.clone()))
+
+    def same(a, b, what):
+        for k in fields:
+            if not torch.equal(getattr(a[0], k), getattr(b[0], k)):
+                raise RuntimeError(f"{label} {what}: state.{k} differs")
+        for k in ("ago", "nbuilds", "overflow", "xhold"):
+            if not torch.equal(getattr(a[1], k), getattr(b[1], k)):
+                raise RuntimeError(f"{label} {what}: list.{k} differs")
+
+    decisions = []
+    for ago in (0, 3, 4, 10):
+        cl = dataclasses.replace(nl, ago=torch.tensor(ago, device=dev))
+        got = bool(sf.needs_rebuild(st, cl))
+        if got != bool(sf.needs_rebuild_reference(st, cl)):
+            raise RuntimeError(f"{label} decision at ago {ago}: {got}, the "
+                               "plain version's is not")
+        decisions.append(got)
+    if not decisions[-1]:
+        raise RuntimeError(f"{label}: the jitter calls for no rebuild")
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    before = copies(st, nl)
+    out = sf.rebuild_if(st, nl, ~on)
+    same(out, (before[0], dataclasses.replace(
+        before[1], ago=before[1].ago + 1)), "step without a rebuild")
+    ref = sf.rebuild_if_reference(*copies(st, nl), on)
+    if bool(ref[1].overflow):
+        raise RuntimeError(f"{label}: the jitter overflows a cell")
+    out = sf.rebuild_if(st, nl, on)
+    same(out, ref, "rebuild step")
+    moved = int((ref[0].tag != before[0].tag).sum())
+    wrapped = int((ref[0].image != before[0].image).any(1).sum())
+    del ref, before, out
+    t = prof_rebin.timings(st, nl, plain_reps)
+    res = {}
+    for name in rk.KERNELS:
+        on_ms, bound = t["on"][name], t["bound_ms"][name]
+        off_ms = t["off"].get(name)
+        log(f"[kernel] {label} {name}: grid {nl.params.ncells} x cc "
+            f"{nl.params.cell_cap} ({st.capacity} rows, {st.nlocal} atoms), "
+            f"bit-equal to the plain version, device {on_ms:.4f} ms on a "
+            f"rebuild step"
+            + ("" if off_ms is None else f", {off_ms:.4f} ms on one that is "
+               "not") + f", bound {bound:.4g} ms (bytes)")
+        res[name] = {"max_abs_err": 0.0, "ms": on_ms, "device_ms": on_ms,
+                     "off_ms": off_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": LIBRARY_MS}
+    plain = t["plain_ms"]
+    log(f"[rebin plain] {label}: needs_rebuild_reference "
+        f"{plain['needs_rebuild']:.4f} ms, rebuild_if_reference "
+        f"{plain['rebuild_if']:.4f} ms a call (the same work whatever the "
+        f"flag); {moved} rows moved, {wrapped} across the box's faces")
+    res["sorted_rebin_decide"]["plain_ms"] = plain["needs_rebuild"]
+    for name in rk.KERNELS[1:]:
+        res[name]["plain_ms"] = plain["rebuild_if"]
+    del st, nl
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_rebin(dev) -> tuple[list, list]:
+    """Phase 18: the re-bin kernels against their plain versions at the 1M
+    Tersoff and EAM grids, f32 and f64, then the launches of each over the
+    1M Tersoff deck's `run 100` (one a step; an overflow retry re-runs a
+    segment's steps). Returns (the kernel line's entries, the rank's
+    terms)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import rebin_kernels as rk
+    from lammps_kokkos_port_tpu_torch.prof import rebin as prof_rebin
+
+    t0 = time.perf_counter()
+    sim = prof_rebin.tersoff_1m(torch.float64, dev)
+    log(f"[setup] tersoff-1m f64 deck {time.perf_counter() - t0:.1f} s, "
+        f"grid {sim.nl.params.ncells} x cc {sim.nl.params.cell_cap}")
+    rebin_kernels_vs_plain(sim, torch.float32, "rebin tersoff-1m f32")
+    at1m = rebin_kernels_vs_plain(sim, torch.float64, "rebin tersoff-1m f64")
+    for name in rk.KERNELS:
+        getattr(rk, name).launches = 0
+    builds0, params0 = sim.nl.nbuilds, sim.nl.params
+    rows = sim.run(TERSOFF_STEPS, thermo_every=TERSOFF_THERMO)
+    torch.cuda.synchronize()
+    launches = {name: getattr(rk, name).launches for name in rk.KERNELS}
+    builds = sim.nl.nbuilds - builds0
+    log(f"[rebin tersoff-1m] run({TERSOFF_STEPS}): launches {launches}, "
+        f"{builds} rebuilds, {len(rows)} thermo rows")
+    grown = sim.nl.params != params0
+    if len(set(launches.values())) != 1 or (
+            launches["sorted_rebin_decide"] != TERSOFF_STEPS and not grown):
+        raise RuntimeError(f"re-bin kernels not launched once a step: "
+                           f"{launches} over {TERSOFF_STEPS} steps")
+    del sim
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        eam = prof_rebin.eam_1m(torch.float64, tmp, dev)
+        log(f"[setup] eam-1m f64 deck {time.perf_counter() - t0:.1f} s, "
+            f"grid {eam.nl.params.ncells} x cc {eam.nl.params.cell_cap}")
+        for dtype, dt in ((torch.float32, "f32"), (torch.float64, "f64")):
+            rebin_kernels_vs_plain(eam, dtype, f"rebin eam-1m {dt}",
+                                   prof_rebin.SLACK["eam-1m"])
+        del eam
+    torch.cuda.empty_cache()
+    share = builds / TERSOFF_STEPS
+    entries, terms = [], []
+    for name in rk.KERNELS:
+        e = at1m[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": REBIN_SOURCE, "replaces": REBIN_REPLACES,
+                        "launches": launches[name], "at": "tersoff-1m f64",
+                        **e})
+        off = e["off_ms"] if e["off_ms"] is not None else e["ms"]
+        per_call = {"device_ms": share * e["ms"] + (1 - share) * off,
+                    "bound_ms": share * e["bound_ms"]}
+        terms.append((name, "tersoff-1m", launches[name] / TERSOFF_STEPS,
+                      per_call))
     return entries, terms
 
 
@@ -2307,7 +2469,8 @@ def main() -> int:
                                                   column_kernels, cuda_build,
                                                   eam_kernels, eamdense,
                                                   half_kernels, pair_kernels,
-                                                  sortedforce, tersoff_kernels)
+                                                  rebin_kernels,
+                                                  tersoff_kernels)
     from lammps_kokkos_port_tpu_torch.ops.eamdense import embedding_fp
     from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
                                                    column_half_kernels,
@@ -2334,7 +2497,8 @@ def main() -> int:
                                   half_kernels.SOURCE, ablate_kernels.SOURCE,
                                   column_half_kernels.SOURCE,
                                   dynslice_kernels.SOURCE,
-                                  zwin_kernels.SOURCE, tersoff_kernels.SOURCE)
+                                  zwin_kernels.SOURCE, tersoff_kernels.SOURCE,
+                                  rebin_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -2402,8 +2566,9 @@ def main() -> int:
         raise RuntimeError("1M deck never launched the kernel")
     check_run(sim1m, rows, "lj-1m")
     step_1m = step_rate(sim1m, 20, "lj-1m")
-    profile_segment(sim1m, 20, step_1m, "lj-1m", ("lj_cell_force",),
-                    {"rebin": [(sortedforce, "rebuild_state")]})
+    profile_segment(sim1m, 20, step_1m, "lj-1m",
+                    ("lj_cell_force", "sorted_rebin_bin",
+                     "sorted_rebin_move"), {})
     kernel_on_deck_state(sim1m, "lj-1m")
 
     # 6.-8. the EAM deck on the synthetic Sutton-Chen stand-in
@@ -2478,9 +2643,8 @@ def main() -> int:
         raise RuntimeError("EAM run made no distance-checked rebuild")
     check_run(eam, rows, "eam-32k", bound=EAM_DRIFT_BOUND)
     eam_step = step_rate(eam, 50, "eam-32k")
-    eam_kernels_pair = ("eam_cell_rho", "eam_cell_force")
-    rebin = {"rebin": [(sortedforce, "needs_rebuild"),
-                       (sortedforce, "rebuild_if")]}
+    eam_kernels_pair = ("eam_cell_rho", "eam_cell_force",
+                        *rebin_kernels.KERNELS)
     glue_calls = []
 
     def no_glue(*args, **kwargs):
@@ -2491,7 +2655,7 @@ def main() -> int:
     with replaced([(eam_kernels, "embedding_fp", no_glue),
                    (eamdense, "embedding_fp", no_glue)]):
         fused = profile_segment(eam, 50, eam_step, "eam-32k",
-                                eam_kernels_pair, rebin)
+                                eam_kernels_pair, {})
     if glue_calls:
         raise RuntimeError(f"eam-32k: embedding_fp called {len(glue_calls)}"
                            " times in the profiled segment on the card")
@@ -2501,7 +2665,7 @@ def main() -> int:
         unfused_step = step_rate(eam, 50, "eam-32k unfused chain")
         unfused = profile_segment(
             eam, 50, unfused_step, "eam-32k unfused chain", eam_kernels_pair,
-            {**rebin, "fp glue": [(eamdense, "embedding_fp")]})
+            {"fp glue": [(eamdense, "embedding_fp")]})
     log(f"[eam-32k device ops per step] unfused chain (rho sweep, "
         f"embedding_fp, force sweep) {unfused['ops_per_step']:.1f} -> fused "
         f"{fused['ops_per_step']:.1f}; device busy "
@@ -2573,6 +2737,8 @@ def main() -> int:
     last = phase_last_sites(dev)
     # 17. Tersoff: the kernels and the 1M deck's main path
     tersoff, tersoff_terms = phase_tersoff(dev)
+    # 18. the re-bin kernels at the 1M grids and on the 1M Tersoff deck
+    rebin, rebin_terms = phase_rebin(dev)
 
     kernels = [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2596,7 +2762,7 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": LAST_SITES[name][0],
            "replaces": LAST_SITES[name][1], **entry}
           for name, entry in last.items()),
-        *tersoff,
+        *tersoff, *rebin,
     ]
     rank(kernels, [
         ("lj_cell_force", "lj-32k", launches / 1000, main_cell),
@@ -2604,7 +2770,7 @@ def main() -> int:
         *((name, "eam-32k", eam_launches[name] / EAM_STEPS, eam_cells[name])
           for name in EAM_KERNELS),
         ("lj_cell_dense", "lj-1m-cell", cell_launches / DECK_STEPS,
-         main_dense), *tersoff_terms])
+         main_dense), *tersoff_terms, *rebin_terms])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,8 @@ integrate/verlet.py instead.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core.state import State
@@ -66,6 +68,10 @@ def make_sorted_nve_segment(integrator, style):
                 "delay <= every only; use verlet.make_step_segment")
         prd = state.box.prd.to(state.dtype)
         st = state
+        # the card's re-bin raises the overflow flag in place: the
+        # segment's own flag, so the caller's list (the grow-retry's
+        # snapshot) stays as it was
+        nl = dataclasses.replace(nl, overflow=nl.overflow.clone())
         planar = sortedforce.planar
         xs, vs, fs = planar(state.x), planar(state.v), planar(state.f)
         dtfm, dtv = row_factors(state)

@@ -106,18 +106,18 @@ def make_step(integrator: Integrator, force_fn):
 
 def make_step_segment(integrator: Integrator, force_fn):
     """Segment runner (state, nl, nsteps) -> (state, nl) built on
-    `make_step`. For the sorted layout the returned list keeps `ago` and
-    `nbuilds` on the device (`list_ops(nl).read_back` brings them to the
-    host with the overflow flag); a set overflow flag NaN-poisons the
-    returned positions."""
+    `make_step`. For the sorted layout the segment starts from its own
+    copies of what the card's re-bin updates in place
+    (sortedforce.segment_copies: the state and list it is given are left
+    as they were), and the returned list keeps `ago` and `nbuilds` on the
+    device (`list_ops(nl).read_back` brings them to the host with the
+    overflow flag); a set overflow flag NaN-poisons the returned
+    positions."""
     step = make_step(integrator, force_fn)
 
     def runner(state: State, nl, nsteps: int):
-        dev = state.device
         if isinstance(nl, sortedforce.SortedCells):
-            nl = dataclasses.replace(
-                nl, ago=torch.as_tensor(nl.ago, device=dev),
-                nbuilds=torch.as_tensor(nl.nbuilds, device=dev))
+            state, nl = sortedforce.segment_copies(state, nl)
         for _ in range(nsteps):
             state, nl = step(state, nl)
         state = state.replace(ntimestep=state.ntimestep + nsteps)

@@ -24,6 +24,10 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+# the sorted layout's re-bin kernels (ops/rebin_kernels), which every run of
+# the layout launches beside its force kernels: built in the batch of any
+# other source, so that a checkout's first run waits for no nvcc of theirs
+COMPANIONS = (CSRC / "sorted_rebin.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,9 +53,13 @@ def _nvcc() -> str:
 
 def build(*sources: Path) -> dict[str, str]:
     """Build every library that is not on disk yet, one nvcc process per
-    source, all started together. Returns {source name: compiler log}."""
+    source, all started together, with the missing `COMPANIONS` among them
+    where anything is built. Returns {source name: compiler log} of
+    `sources`."""
     todo = [Path(s) for s in sources if not lib_path(s).exists()]
     if todo:
+        todo += [s for s in COMPANIONS
+                 if s not in todo and not lib_path(s).exists()]
         nvcc = _nvcc()
         BUILD_DIR.mkdir(exist_ok=True)
         jobs = []
