@@ -441,69 +441,17 @@ int launch_force(const void* gx, const void* gy, const void* gz,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Coefficient arrays are host
-// doubles: g has 29 values, fpc 80, a and b 28 each. Launch on `stream`,
-// do not synchronise; return cudaGetLastError() after the launch (0 =
-// success).
+// Plain C entry points (bound with ctypes), one per sweep and type.
+// Coefficient arrays are host doubles: g has 29 values, fpc 80, fc 81, a
+// and b 28 each, phi 29. Launch on `stream`, do not synchronise; return
+// cudaGetLastError() after the launch (0 = success).
 //
 // The rho sweep writes rho and, where `fp` is not null, fp = F'(rho) on
 // the rows whose `valid` byte is set (0 elsewhere); with fp null, `valid`
-// and `fpc` are not read.
-extern "C" int eam_cell_rho_f32(const void* gx, const void* gy,
-                                const void* gz, const void* prd,
-                                const void* valid, void* rho, void* fp,
-                                int nx, int ny, int nz, int cc,
-                                const double* g, double u_lo, double u_hi,
-                                double cutsq, const double* fpc,
-                                double rho_lo, double rho_hi, double s_lo,
-                                double s_hi, void* stream) {
-  return launch_rho<float>(gx, gy, gz, prd, valid, rho, fp, nullptr, nx, ny,
-                           nz, cc, g, u_lo, u_hi, cutsq, fpc, rho_lo,
-                           rho_hi, s_lo, s_hi, nullptr, stream);
-}
-
-extern "C" int eam_cell_rho_f64(const void* gx, const void* gy,
-                                const void* gz, const void* prd,
-                                const void* valid, void* rho, void* fp,
-                                int nx, int ny, int nz, int cc,
-                                const double* g, double u_lo, double u_hi,
-                                double cutsq, const double* fpc,
-                                double rho_lo, double rho_hi, double s_lo,
-                                double s_hi, void* stream) {
-  return launch_rho<double>(gx, gy, gz, prd, valid, rho, fp, nullptr, nx, ny,
-                            nz, cc, g, u_lo, u_hi, cutsq, fpc, rho_lo,
-                            rho_hi, s_lo, s_hi, nullptr, stream);
-}
-
-extern "C" int eam_cell_force_f32(const void* gx, const void* gy,
-                                  const void* gz, const void* gfp,
-                                  const void* prd, void* fx, void* fy,
-                                  void* fz, int nx, int ny, int nz, int cc,
-                                  const double* a, const double* b,
-                                  double u_lo, double u_hi, double cutsq,
-                                  void* stream) {
-  return launch_force<float>(gx, gy, gz, gfp, nullptr, prd, fx, fy, fz,
-                             nullptr, nx, ny, nz, cc, a, b, nullptr, u_lo,
-                             u_hi, cutsq, stream);
-}
-
-extern "C" int eam_cell_force_f64(const void* gx, const void* gy,
-                                  const void* gz, const void* gfp,
-                                  const void* prd, void* fx, void* fy,
-                                  void* fz, int nx, int ny, int nz, int cc,
-                                  const double* a, const double* b,
-                                  double u_lo, double u_hi, double cutsq,
-                                  void* stream) {
-  return launch_force<double>(gx, gy, gz, gfp, nullptr, prd, fx, fy, fz,
-                              nullptr, nx, ny, nz, cc, a, b, nullptr, u_lo,
-                              u_hi, cutsq, stream);
-}
-
-// The tally instances (thermo rows). The rho tally writes rho, fp and the
-// embedding energy e (fc: the 81 F coefficients); `valid` is read. The
-// force tally reads ge (each row's e) and writes the forces and `tally`,
-// 7 planes of nx * ny * nz * cc rows (phi: 29 coefficients).
-extern "C" int eam_cell_rho_tally_f32(
+// and `fpc` are not read. Where `e` is not null it launches the tally
+// instance, which also writes the embedding energy e (fp, valid, fpc and
+// fc are read).
+extern "C" int eam_cell_rho_f32(
     const void* gx, const void* gy, const void* gz, const void* prd,
     const void* valid, void* rho, void* fp, void* e, int nx, int ny, int nz,
     int cc, const double* g, double u_lo, double u_hi, double cutsq,
@@ -514,7 +462,7 @@ extern "C" int eam_cell_rho_tally_f32(
                            s_lo, s_hi, fc, stream);
 }
 
-extern "C" int eam_cell_rho_tally_f64(
+extern "C" int eam_cell_rho_f64(
     const void* gx, const void* gy, const void* gz, const void* prd,
     const void* valid, void* rho, void* fp, void* e, int nx, int ny, int nz,
     int cc, const double* g, double u_lo, double u_hi, double cutsq,
@@ -525,7 +473,11 @@ extern "C" int eam_cell_rho_tally_f64(
                             s_lo, s_hi, fc, stream);
 }
 
-extern "C" int eam_cell_force_tally_f32(
+// The force sweep writes the forces; where `tally` is not null it launches
+// the tally instance, which reads ge (each row's e) and also writes
+// `tally`, 7 planes of nx * ny * nz * cc rows (ge and phi unread
+// otherwise).
+extern "C" int eam_cell_force_f32(
     const void* gx, const void* gy, const void* gz, const void* gfp,
     const void* ge, const void* prd, void* fx, void* fy, void* fz,
     void* tally, int nx, int ny, int nz, int cc, const double* a,
@@ -536,7 +488,7 @@ extern "C" int eam_cell_force_tally_f32(
                              stream);
 }
 
-extern "C" int eam_cell_force_tally_f64(
+extern "C" int eam_cell_force_f64(
     const void* gx, const void* gy, const void* gz, const void* gfp,
     const void* ge, const void* prd, void* fx, void* fy, void* fz,
     void* tally, int nx, int ny, int nz, int cc, const double* a,

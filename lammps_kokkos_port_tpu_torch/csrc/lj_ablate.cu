@@ -45,8 +45,8 @@
 // flight per row; the candidate is one packed (x, y, z, id) record, one
 // 16-byte broadcast load in f32; the partial sums meet by warp shuffles in
 // a fixed butterfly order (deterministic). kSplit was chosen by measurement
-// (prof/full_redesign.py on an H100: 4 threads a row against 8, 4% faster
-// in f64, within 2% in f32, where 8 gain 1-2% with the exact divide).
+// (on an H100: 4 threads a row against 8, 4% faster in f64, within 2%
+// in f32, where 8 gain 1-2% with the exact divide).
 
 #include "cell_stencil.cuh"
 

@@ -45,14 +45,13 @@
 // their rows whatever row pass owns them (cc > 32), and the sums come out
 // in an order that varies from run to run. Measured against the other
 // designs of the reactions (PERF.md section 6; each built from this
-// source by prof/half_redesign.py): a shared-memory accumulator per kept
-// candidate with a shared atomic per pair and component (the first
-// design's scheme, on the walk) took about twice this design's time; the
-// designs with no atomic per pair (a lane-rotated pass with the reactions
-// moved by shuffles, or a transposed pass from the candidates' side) paid
-// more in their extra pass than the reductions cost; in f32 one reduction
-// per component made the pass about a quarter slower than the four-wide
-// one.
+// source): a shared-memory accumulator per kept candidate with a shared
+// atomic per pair and component (the first design's scheme, on the walk)
+// took about twice this design's time; the designs with no atomic per
+// pair (a lane-rotated pass with the reactions moved by shuffles, or a
+// transposed pass from the candidates' side) paid more in their extra
+// pass than the reductions cost; in f32 one reduction per component made
+// the pass about a quarter slower than the four-wide one.
 //
 // Pads are told by position and skipped where the box keeps them out of
 // every cutoff (sorted_grid.cuh, conditions (a)-(c)); where it does not,

@@ -56,7 +56,7 @@
 // Bound: operations (every lane-pair's r2 and cutoff test, about 9.4 M at
 // the script's shapes, plus the body of the pairs in the cutoff, about
 // 0.0013 ms on an H100). What takes the time (an H100 at 700 W, the
-// script's shapes, prof/proto_redesign.py's ablations): the reaction
+// script's shapes, ablations of this source): the reaction
 // blocks' staging, one 32-byte sector for each 4-byte value of a column
 // of the planes (about half the reaction blocks' time), then the two
 // gathers' tests.

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from ..io.eam_reader import Funcfl, read_funcfl
+from ..ops import eamdense
+from .pair import ForcePaths
 
 
 def _interpolate(n: int, delta: float, f: np.ndarray) -> np.ndarray:
@@ -104,18 +106,26 @@ class PairEAM:
     def max_cutoff(self) -> float:
         return self.cutmax
 
-    @property
-    def dense_two_pass(self) -> bool:
-        """Single-element styles take the dense path (ops/eamdense:
-        Chebyshev-resampled tables, two cell sweeps)."""
-        return self.ntypes == 1
+    @functools.cached_property
+    def force_paths(self) -> ForcePaths:
+        """A single element takes the dense path (ops/eamdense:
+        Chebyshev-resampled tables, two cell sweeps) in list modes "sorted"
+        and "cell". List mode "auto" raises: the JAX package runs EAM there
+        on its exact-spline matrix engine, which is not ported. Several
+        elements run in no mode yet."""
+        if self.ntypes != 1:
+            return ForcePaths({})
+        return ForcePaths(
+            {"sorted": eamdense.compute, "cell": eamdense.compute},
+            auto_refused=(
+                "EAM in list mode 'auto' runs the exact-spline matrix "
+                "engine in the JAX package, which is not ported; pass "
+                "list_mode='sorted' for the dense Chebyshev path"))
 
     @functools.cached_property
     def poly_tables(self) -> dict:
         """The dense path's Chebyshev tables, built on the host once per
         style (ops/eamdense.build_poly_tables), never in the step loop."""
-        from ..ops import eamdense
-
         return eamdense.build_poly_tables(self)
 
     def compute(self, state, nl, eflag: bool, vflag: bool):

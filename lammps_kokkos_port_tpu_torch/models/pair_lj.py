@@ -19,7 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from .pair import mix_epsilon, mix_sigma
+from ..ops import cellforce, pair_kernels
+from .pair import ForcePaths, mix_epsilon, mix_sigma
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,16 @@ class PairLJCut:
 
     def max_cutoff(self) -> float:
         return self.cut_global_max
+
+    @functools.cached_property
+    def force_paths(self) -> ForcePaths:
+        """List mode "cell" at any number of types (ops/cellforce);
+        "sorted" (and so "auto") at one type (`kernel_key`: the cell force
+        kernel, ops/pair_kernels.compute_sorted)."""
+        modes = {"cell": cellforce.compute}
+        if self.kernel_key() is not None:
+            modes["sorted"] = pair_kernels.compute_sorted
+        return ForcePaths(modes)
 
     def kernel_key(self):
         """Hashable scalar-coefficient key ("lj", lj1, lj2, cutsq) for the

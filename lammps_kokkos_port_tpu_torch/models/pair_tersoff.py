@@ -16,17 +16,19 @@ then one three-body pass), with no autograd on the step path:
     g      = gamma (1 + c^2/d^2 - c^2 / (d^2 + (cos theta - h)^2))
 
 The style is a parameter record: host floats read from the file, passed
-to the kernels by value and rounded to the run's type there. It marks
-itself as a three-body style (`three_body`), which the list-mode choice
-(runner._pick_list_mode) and the force dispatch (ops/sortedforce.compute)
-read. Multi-element tables and the `shift` keyword raise
-NotImplementedError, as do tersoff/mod and tersoff/zbl (script.py).
+to the kernels by value and rounded to the run's type there. It runs in
+list mode "sorted" alone, which "auto" resolves to (`force_paths`).
+Multi-element tables and the `shift` keyword raise NotImplementedError,
+as do tersoff/mod and tersoff/zbl (script.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import ClassVar
+
+from ..ops import tersoff_kernels
+from .pair import ForcePaths
 
 # the numbers of one entry in the file's order (after the three elements)
 FIELDS = ("m", "gamma", "lam3", "c", "d", "h", "n", "beta", "lam2", "bigb",
@@ -74,7 +76,8 @@ class PairTersoff:
     lam1: float
     biga: float
 
-    three_body: ClassVar[bool] = True
+    force_paths: ClassVar[ForcePaths] = ForcePaths(
+        {"sorted": tersoff_kernels.compute})
 
     def max_cutoff(self) -> float:
         """R + D: fc and its derivative are 0 beyond it."""

@@ -7,12 +7,14 @@ bins, src/KOKKOS/npair_kokkos.cpp):
 
   - rebuild: bin atoms into dense buckets [ncells+1, cell_cap] with the
     sort-based `neighbor._bin_atoms`; the state itself is not permuted;
-  - force-only passes (every MD step) of a style with a `kernel_key` go to
-    the CUDA kernel of ops/cell_kernels (K6), at every grid size;
-  - energy/virial passes (thermo steps) and styles without a kernel key
-    take the plain PyTorch path below: for each chunk of cells, gather the
-    own rows and the 27 stencil cells' rows and evaluate every candidate
-    pair with masks, as the JAX package leaves it to XLA.
+  - `compute` is lj/cut's force path on the buckets (the style's "cell"
+    mode, models/pair_lj): force-only passes (every MD step) of a single
+    type go to the CUDA kernel of ops/cell_kernels (K6), at every grid
+    size;
+  - energy/virial passes (thermo steps) and several types take the plain
+    PyTorch path below: for each chunk of cells, gather the own rows and
+    the 27 stencil cells' rows and evaluate every candidate pair with
+    masks, as the JAX package leaves it to XLA.
 
 The rebuild decision is made on the host (`needs_rebuild` returns a bool):
 the cadence of `neigh_modify every/delay` is known there, and with `check
@@ -24,6 +26,7 @@ argsort of every atom's cell id) on every step.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -39,6 +42,8 @@ class CellListDense:
     are host ints; `overflow` is a sticky 0-d bool tensor on the device.
     (The JAX version's `ndanger` counter is not ported: no list mode of
     the JAX package ever counts one.)"""
+
+    list_mode: ClassVar[str] = "cell"
 
     buckets: torch.Tensor  # [ntot+1, cell_cap] int32 atom rows (cap = empty)
     stencil: torch.Tensor  # [ntot, 27] int32 neighbour cell ids (ntot = dead)
@@ -120,12 +125,11 @@ def read_back(cl: CellListDense) -> tuple[bool, CellListDense]:
 
 def compute(style, state: State, cl: CellListDense, eflag: bool,
             vflag: bool, cell_chunk: int = 128):
-    """Dense per-cell pair evaluation for pair_terms styles. Returns
+    """Dense per-cell pair evaluation for lj/cut (`pair_terms`). Returns
     (f, pe, virial); pe/virial are None unless requested. Atoms in no
     bucket (padding) get zero force."""
     if not eflag and not vflag:
-        kk = getattr(style, "kernel_key", None)
-        key = kk() if kk is not None else None
+        key = style.kernel_key()
         if key is not None:
             from .cell_kernels import lj_cell_dense
 

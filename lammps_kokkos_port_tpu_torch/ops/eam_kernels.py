@@ -32,7 +32,7 @@ JAX package left the energy pass to XLA):
       the 27-cell stencil sees each pair from both rows.
 
 `compute_tally_sorted` chains them and sums the planes over the valid
-rows in float64 (`tally_sums`; no atomics: deterministic).
+rows in float64 (`pair_kernels.tally_sums`; no atomics: deterministic).
 
 CPU tensors go to the plain PyTorch twins `eam_cell_rho_reference` (then
 `embedding_fp`), `eam_cell_force_reference` and the tally twins
@@ -56,7 +56,8 @@ import torch
 from . import cuda_build
 from .eamdense import clenshaw, embedding_energy, embedding_fp
 from .pair_kernels import (check_grid, check_launch, check_pad_cutoff,
-                           stencil, walk_launch)
+                           stencil, tally_sums, walk_launch)
+from .sortedforce import planar
 
 SOURCE = cuda_build.CSRC / "eam_cell.cu"
 NG = 29   # g coefficients the kernel takes (ops/eamdense.DEG + 1)
@@ -192,20 +193,16 @@ def eam_cell_force_tally_reference(tab, phi_c, ncells, gx, gy, gz, gfp, ge,
 
 _PTR, _I32, _F64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _DBL = ctypes.POINTER(ctypes.c_double)
-# the C entry points' argument types, <stem>_f32 and <stem>_f64 alike
+# the C entry points' argument types, <stem>_f32 and <stem>_f64 alike: one
+# entry per sweep, which launches the tally instance where its tally
+# arguments are not null (rho: e and the F coefficients; force: ge, tally
+# and the phi coefficients); each reports its launch shape (`<stem>_shape`;
+# the tally instances launch as the sweeps they instantiate)
 ARGTYPES = {
-    "eam_cell_rho": ([_PTR] * 7 + [_I32] * 4 + [_DBL] + [_F64] * 3 + [_DBL]
-                     + [_F64] * 4 + [_PTR]),
-    "eam_cell_force": ([_PTR] * 8 + [_I32] * 4 + [_DBL] * 2 + [_F64] * 3
-                       + [_PTR]),
-    "eam_cell_rho_tally": ([_PTR] * 8 + [_I32] * 4 + [_DBL] + [_F64] * 3
-                           + [_DBL] + [_F64] * 4 + [_DBL, _PTR]),
-    "eam_cell_force_tally": ([_PTR] * 10 + [_I32] * 4 + [_DBL] * 3
-                             + [_F64] * 3 + [_PTR])}
-# the step's two sweeps, the entry points that also report their launch
-# shape (`<stem>_shape`; the tally instances launch as the sweeps they
-# instantiate)
-SWEEPS = ("eam_cell_rho", "eam_cell_force")
+    "eam_cell_rho": ([_PTR] * 8 + [_I32] * 4 + [_DBL] + [_F64] * 3 + [_DBL]
+                     + [_F64] * 4 + [_DBL, _PTR]),
+    "eam_cell_force": ([_PTR] * 10 + [_I32] * 4 + [_DBL] * 3 + [_F64] * 3
+                       + [_PTR])}
 
 
 @functools.cache
@@ -217,7 +214,7 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"{stem}_{dt}")
             fn.argtypes = types
             fn.restype = _I32
-    for stem in SWEEPS:
+    for stem in ARGTYPES:
         fn = getattr(lib, f"{stem}_shape")
         fn.argtypes = [_I32, _I32, _PTR]
         fn.restype = _I32
@@ -264,7 +261,7 @@ def _rho_launch(tab, ftab, ncells, gx, gy, gz, valid, prd, etab=None):
     check_pad_cutoff(cutsq)
     g_arr = _coeffs(g_c, NG, "g")
     rho = torch.empty_like(gx)
-    fp = fp_arr = valid_ptr = e = None
+    fp = fp_arr = valid_ptr = e = e_arr = None
     fp_consts = (0.0,) * 4
     if ftab is not None:
         fp_arr = _coeffs(ftab[0], NFP, "Fp_s")
@@ -272,20 +269,21 @@ def _rho_launch(tab, ftab, ncells, gx, gy, gz, valid, prd, etab=None):
         valid = valid.reshape(gx.shape).contiguous()
         valid_ptr = valid.data_ptr()
         fp = torch.empty_like(gx)
-    outs = [rho.data_ptr(), None if fp is None else fp.data_ptr()]
-    stem, tail, counted = "eam_cell_rho", (), eam_cell_rho
+    counted = eam_cell_rho
     if etab is not None:
         e = torch.empty_like(gx)
-        outs.append(e.data_ptr())
-        stem, counted = "eam_cell_rho_tally", eam_cell_rho_tally
-        tail = (_coeffs(etab, NF, "F"),)
+        e_arr = _coeffs(etab, NF, "F")
+        counted = eam_cell_rho_tally
+    outs = [rho, fp, e]
     with torch.cuda.device(gx.device):
-        err = _fn(stem, gx.dtype)(
+        err = _fn("eam_cell_rho", gx.dtype)(
             gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), prd.data_ptr(),
-            valid_ptr, *outs, *ncells, gx.shape[1], g_arr, u_lo, u_hi, cutsq,
-            fp_arr, *fp_consts, *tail, _stream(gx))
+            valid_ptr, *(None if t is None else t.data_ptr() for t in outs),
+            *ncells, gx.shape[1], g_arr, u_lo, u_hi, cutsq, fp_arr,
+            *fp_consts, e_arr, _stream(gx))
     if err != 0:
-        raise RuntimeError(f"{stem} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{counted.__name__} launch failed: CUDA error "
+                           f"{err}")
     counted.launches += 1
     return rho, fp, e
 
@@ -294,27 +292,26 @@ def _force_launch(tab, ncells, gx, gy, gz, gfp, prd, phi_c=None, ge=None):
     """One launch of the force sweep; with `phi_c` and `ge` the tally
     instance. Returns (f [3, ncells, cc], tally [7, ncells, cc] or
     None)."""
-    ins = [gx, gy, gz, gfp] + ([] if ge is None else [ge])
-    check_launch(ins, prd)
+    check_launch([gx, gy, gz, gfp] + ([] if ge is None else [ge]), prd)
     a_c, b_c, u_lo, u_hi, cutsq = tab
     check_pad_cutoff(cutsq)
-    coeffs = [_coeffs(a_c, NAB, "a"), _coeffs(b_c, NAB, "b")]
     ncell, cc = gx.shape
     out = torch.empty((3, ncell, cc), dtype=gx.dtype, device=gx.device)
-    outs = list(out)
-    stem, tally, counted = "eam_cell_force", None, eam_cell_force
+    tally = phi_arr = None
+    counted = eam_cell_force
     if phi_c is not None:
         tally = torch.empty((7, ncell, cc), dtype=gx.dtype, device=gx.device)
-        outs.append(tally)
-        coeffs.append(_coeffs(phi_c, NPHI, "phi"))
-        stem, counted = "eam_cell_force_tally", eam_cell_force_tally
+        phi_arr = _coeffs(phi_c, NPHI, "phi")
+        counted = eam_cell_force_tally
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (gx, gy, gz, gfp, ge, prd, *out, tally)]
     with torch.cuda.device(gx.device):
-        err = _fn(stem, gx.dtype)(
-            *(t.data_ptr() for t in ins), prd.data_ptr(),
-            *(t.data_ptr() for t in outs), *ncells, cc, *coeffs, u_lo, u_hi,
-            cutsq, _stream(gx))
+        err = _fn("eam_cell_force", gx.dtype)(
+            *ptrs, *ncells, cc, _coeffs(a_c, NAB, "a"),
+            _coeffs(b_c, NAB, "b"), phi_arr, u_lo, u_hi, cutsq, _stream(gx))
     if err != 0:
-        raise RuntimeError(f"{stem} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{counted.__name__} launch failed: CUDA error "
+                           f"{err}")
     counted.launches += 1
     return out, tally
 
@@ -409,8 +406,6 @@ eam_cell_force_tally.launches = 0
 def _sorted_grid(style, state, cl):
     """(params, planar grid [3, ncells, cc], prd, cutsq) of a SortedCells
     state."""
-    from .sortedforce import planar
-
     p = cl.params
     g = planar(state.x).reshape(3, p.total_cells, p.cell_cap)
     return p, g, state.box.prd.to(state.dtype), float(style.cutmax) ** 2
@@ -434,8 +429,8 @@ def compute_tally_sorted(style, tabs, state, cl):
     3] in the sorted layout, pe, virial [6]), pe and virial as the grid-roll
     path of ops/eamdense defines them (pe = sum_i F(rho_i) + the pair
     energy, each pair once; virial = sum over pairs of fpair dx_a dx_b),
-    the valid rows' planes summed (`tally_sums`), then taken to the
-    state's dtype."""
+    the valid rows' planes summed (`pair_kernels.tally_sums`), then taken
+    to the state's dtype."""
     p, g, prd, cutsq = _sorted_grid(style, state, cl)
     _, gfp, ge = eam_cell_rho_tally(rho_tab(tabs, cutsq), fp_tab(tabs),
                                     embed_tab(tabs), p.ncells, g[0], g[1],
@@ -445,12 +440,3 @@ def compute_tally_sorted(style, tabs, state, cl):
     sums = tally_sums(tally, state.valid_mask).to(state.dtype)
     return f.reshape(3, state.capacity).t().contiguous(), sums[0], sums[1:]
 
-
-def tally_sums(tally, valid):
-    """The force tally's 7 planes summed over the rows where `valid` (one
-    entry per row) is set, in float64: (pe, virial xx, yy, zz, xy, xz,
-    yz). Pad rows are left out: where the walks cannot tell pads by
-    position (csrc/sorted_grid.cuh), pads that meet get a pair energy and
-    a virial of their own, which the grid-roll path masks too."""
-    return torch.where(valid, tally.reshape(7, -1), 0.0).sum(
-        dim=1, dtype=torch.float64)

@@ -37,6 +37,8 @@ import torch
 from ..core.state import State
 from ..utils import trace
 from . import gridforce
+from .cellforce import CellListDense
+from .sortedforce import SortedCells
 
 DEG = 28        # pair-function fits (per-candidate Clenshaw cost)
 DEG_EMBED = 80  # embedding fits (per-atom cost)
@@ -154,9 +156,6 @@ def compute(style, state: State, cl, eflag: bool, vflag: bool):
     """Dense two-pass EAM over the sorted layout or the dense cell buckets
     (ops/cellforce), in the list's layout. Returns (f, pe, virial);
     pe/virial are None unless requested."""
-    from .cellforce import CellListDense
-    from .sortedforce import SortedCells
-
     if not isinstance(cl, (SortedCells, CellListDense)):
         raise NotImplementedError(
             "dense EAM is ported for the sorted layout and the cell "
@@ -186,8 +185,6 @@ def grid_roll(style, state: State, cl, eflag: bool, vflag: bool):
     layout or the dense cell buckets. `compute` takes it for cell buckets;
     on the sorted layout the tests hold the sweeps' twins against it.
     Returns (f, pe, virial) as `compute` does."""
-    from .sortedforce import SortedCells
-
     tabs = style.poly_tables
     sorted_layout = isinstance(cl, SortedCells)
     p = cl.params

@@ -13,6 +13,11 @@ use into `_build/` and bound with ctypes (ops/cuda_build). There is no
 fallback from a CUDA tensor to the plain version: the wrapper launches the
 kernel or raises.
 
+`compute_sorted` is lj/cut's force path on the sorted layout (the
+style's "sorted" mode, models/pair_lj): the kernel on every step, the
+plain grid path of ops/gridforce on thermo rows. `tally_sums` reduces the
+per-row energy and virial planes of the EAM and Tersoff tally kernels.
+
 Each pair is formed in the frame of the Newton-half K1/K2 (`stencil`,
 frame "half"): across a wrapped face both rows of a pair at the cutoff
 take K1's one decision (tests/test_torch_cutoff_frame.py).
@@ -32,8 +37,8 @@ import functools
 
 import torch
 
-from . import cuda_build
-from .sortedforce import PAD_STEP
+from . import cuda_build, gridforce
+from .sortedforce import PAD_STEP, planar
 
 SOURCE = cuda_build.CSRC / "lj_cell_force.cu"
 # the cell_stencil.cuh sweep kernels: one thread per row, one block row per
@@ -135,6 +140,16 @@ def stencil(ncells, gx, gy, gz, prd, extra=(), offsets=_OFFSETS,
         cand = [torch.roll(a.reshape(nx, ny, nz, cc), shifts=shifts,
                            dims=(0, 1, 2)) for a in extra]
         yield d, r2, pair_ok, cand
+
+
+def tally_sums(tally, valid):
+    """A tally's 7 planes [7, ...] summed over the rows where `valid` (one
+    entry per row) is set, in float64: (pe, virial xx, yy, zz, xy, xz,
+    yz). Pad rows are left out: where the walks cannot tell pads by
+    position (csrc/sorted_grid.cuh), pads that meet get a pair energy and
+    a virial of their own, which the grid-roll path masks too."""
+    return torch.where(valid, tally.reshape(7, -1), 0.0).sum(
+        dim=1, dtype=torch.float64)
 
 
 def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
@@ -246,3 +261,31 @@ def lj_cell_force(key, ncells, gx, gy, gz, prd):
 
 
 lj_cell_force.launches = 0
+
+
+def compute_sorted(style, state, cl, eflag: bool, vflag: bool):
+    """lj/cut's (f, pe, virial) on a SortedCells state, one atom type (the
+    style's "sorted" path, models/pair_lj). The force-only pass (every MD
+    step) goes through `lj_cell_force`; energy/virial passes (thermo rows)
+    take the plain PyTorch grid path (ops/gridforce) on the identity
+    buckets the sorted layout implies, as the JAX package took its XLA
+    path there. pe and virial are None unless asked for."""
+    p = cl.params
+    cap = state.capacity
+    ntot = p.total_cells
+    cc = p.cell_cap
+
+    if not eflag and not vflag:
+        g = planar(state.x).reshape(3, ntot, cc)
+        f = lj_cell_force(style.kernel_key(), p.ncells, g[0], g[1], g[2],
+                          state.box.prd.to(state.dtype))
+        return f.reshape(3, cap).t().contiguous(), None, None
+
+    rows = torch.arange(cap, dtype=torch.int32,
+                        device=state.device).reshape(ntot, cc)
+    buckets = torch.where(state.mask.reshape(ntot, cc) != 0, rows, cap)
+    buckets = torch.cat(
+        [buckets, torch.full((1, cc), cap, dtype=torch.int32,
+                             device=state.device)], dim=0)
+    gc = gridforce.GridCells(buckets=buckets, params=p)
+    return gridforce.compute(style, state, gc, eflag, vflag)

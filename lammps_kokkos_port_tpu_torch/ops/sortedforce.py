@@ -10,10 +10,12 @@ layout itself):
     cell assignment (`rebuild_state` on steps the host schedules,
     `needs_rebuild` + `rebuild_if` where the device decides; on the card
     the kernels of ops/rebin_kernels, on the CPU the plain versions here);
-  - the force pass reads positions in grid layout and writes forces in the
-    same layout through the CUDA cell kernels (ops/pair_kernels for
-    lj/cut, ops/eam_kernels for EAM), so the force pass has no gathers or
-    scatters at all.
+  - the force passes read positions in grid layout and write forces in the
+    same layout (each pair style's "sorted" path, models/pair.ForcePaths:
+    ops/pair_kernels for lj/cut, ops/eamdense and ops/eam_kernels for EAM,
+    ops/tersoff_kernels for Tersoff), so a force pass has no gathers or
+    scatters at all. This module holds the layout alone and imports no
+    force module.
 
 JAX's clamped gathers and dropping scatters become explicit masks here:
 PyTorch raises on out-of-range indices.
@@ -22,6 +24,7 @@ PyTorch raises on out-of-range indices.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -71,6 +74,8 @@ class SortedCells:
     can tell a short-list overflow from a cell overflow
     (runner._grow_params).
     """
+
+    list_mode: ClassVar[str] = "sorted"
 
     ago: int | torch.Tensor
     nbuilds: int | torch.Tensor
@@ -185,6 +190,32 @@ def _local_perm(state: State, p: nbr.NeighborParams):
     return torch.where(valid, newpos, cap), moved_far | cell_overflow
 
 
+def _gather(state: State, perm, with_f: bool) -> State:
+    """Row r of every per-atom array taken from row perm[r] (`perm` [cap]
+    int64; entries >= cap make r a padding row: zeros, mask 0 and its pad
+    sentinel position). `f` is gathered too where `with_f`, else left as
+    it is."""
+    cap = state.capacity
+    dev = state.device
+    valid = perm < cap
+    safe = torch.clamp(perm, max=cap - 1)
+
+    def g(a):
+        if a is None:
+            return None
+        sel = valid.reshape([-1] + [1] * (a.ndim - 1))
+        return torch.where(sel, a[safe], torch.zeros((), dtype=a.dtype,
+                                                      device=dev))
+
+    x = torch.where(valid[:, None], state.x[safe],
+                    _pad_x(cap, state.dtype, dev)[:, None])
+    return state.replace(
+        x=x, v=g(state.v), f=g(state.f) if with_f else state.f,
+        type=g(state.type), tag=g(state.tag), image=g(state.image),
+        q=g(state.q), molecule=g(state.molecule), mask=g(state.mask),
+    )
+
+
 def _apply_perm(state: State, newpos, overflow):
     """Move every row to its destination slot (`newpos` [cap]; entries
     >= cap are dropped). The forward map is inverted with one scatter into
@@ -195,51 +226,15 @@ def _apply_perm(state: State, newpos, overflow):
     keep = newpos < cap
     perm = torch.full((cap,), cap, dtype=torch.int64, device=dev)
     perm[newpos[keep]] = torch.arange(cap, device=dev)[keep]
-    valid = perm < cap
-    safe = torch.clamp(perm, max=cap - 1)
-
-    def g(a):
-        if a is None:
-            return None
-        sel = valid.reshape([-1] + [1] * (a.ndim - 1))
-        return torch.where(sel, a[safe], torch.zeros((), dtype=a.dtype,
-                                                      device=dev))
-
-    x = torch.where(valid[:, None], state.x[safe],
-                    _pad_x(cap, state.dtype, dev)[:, None])
-    state = state.replace(
-        x=x, v=g(state.v), q=g(state.q), type=g(state.type),
-        tag=g(state.tag), image=g(state.image), molecule=g(state.molecule),
-        mask=g(state.mask),
-    )
-    return state, overflow
+    return _gather(state, perm, with_f=False), overflow
 
 
 def _permute(state: State, p: nbr.NeighborParams):
-    """Permute all per-atom arrays into cell-major order.
+    """Permute all per-atom arrays, `f` included, into cell-major order.
     Returns (state_sorted, cell_overflow)."""
-    cap = state.capacity  # == ntot * cc
-    dev = state.device
     _, buckets, overflow = nbr._bin_atoms(state, p)
     perm = buckets[:p.total_cells].reshape(-1).long()  # == cap -> padding
-    valid = perm < cap
-    safe = torch.clamp(perm, max=cap - 1)
-
-    def g(a):
-        if a is None:
-            return None
-        sel = valid.reshape([-1] + [1] * (a.ndim - 1))
-        return torch.where(sel, a[safe], torch.zeros((), dtype=a.dtype,
-                                                      device=dev))
-
-    x = torch.where(valid[:, None], state.x[safe],
-                    _pad_x(cap, state.dtype, dev)[:, None])
-    state = state.replace(
-        x=x, v=g(state.v), f=g(state.f), type=g(state.type),
-        tag=g(state.tag), image=g(state.image), q=g(state.q),
-        molecule=g(state.molecule), mask=g(state.mask),
-    )
-    return state, overflow
+    return _gather(state, perm, with_f=True), overflow
 
 
 @trace.spanned("neigh")
@@ -405,48 +400,3 @@ def planar(a: torch.Tensor) -> torch.Tensor:
     the fused segment updates it in place."""
     return a.t().clone(memory_format=torch.contiguous_format)
 
-
-def compute(style, state: State, cl: SortedCells, eflag: bool, vflag: bool):
-    """(f, pe, virial) in the sorted layout. Dense two-pass styles (EAM)
-    go to ops/eamdense, three-body styles (Tersoff) to ops/tersoff_kernels.
-    For pair_terms styles the force-only pass goes through the CUDA cell
-    kernel; energy/virial passes (thermo steps) take the plain PyTorch grid
-    path (ops/gridforce), as the JAX package took its XLA path there."""
-    if getattr(style, "dense_two_pass", False):
-        from . import eamdense
-
-        return eamdense.compute(style, state, cl, eflag, vflag)
-    if getattr(style, "three_body", False):
-        from . import tersoff_kernels
-
-        return tersoff_kernels.compute(style, state, cl, eflag, vflag)
-
-    p = cl.params
-    cap = state.capacity
-    ntot = p.total_cells
-    cc = p.cell_cap
-
-    if not eflag and not vflag:
-        key = style.kernel_key()
-        if key is None:
-            raise NotImplementedError(
-                "sorted force pass needs a single-type lj/cut style")
-        from .pair_kernels import lj_cell_force
-
-        g = planar(state.x).reshape(3, ntot, cc)
-        f = lj_cell_force(key, p.ncells, g[0], g[1], g[2],
-                          state.box.prd.to(state.dtype))
-        return f.reshape(3, cap).t().contiguous(), None, None
-
-    # energy/virial evaluations: the grid path with the identity buckets
-    # the sorted layout implies
-    from . import gridforce
-
-    rows = torch.arange(cap, dtype=torch.int32,
-                        device=state.device).reshape(ntot, cc)
-    buckets = torch.where(state.mask.reshape(ntot, cc) != 0, rows, cap)
-    buckets = torch.cat(
-        [buckets, torch.full((1, cc), cap, dtype=torch.int32,
-                             device=state.device)], dim=0)
-    gc = gridforce.GridCells(buckets=buckets, params=p)
-    return gridforce.compute(style, state, gc, eflag, vflag)

@@ -21,7 +21,7 @@ kernels:
       thermo rows, which also adds each pair's energy and virial into its
       row i of a [7, rows] tally (pe, xx, yy, zz, xy, xz, yz; LAMMPS's
       ev_tally and v_tally3), summed over the valid rows in float64
-      (`eam_kernels.tally_sums`).
+      (`pair_kernels.tally_sums`).
 
 `compute` chains them on a SortedCells state, under the spans
 `pair.tersoff` > `pair.tersoff.short`, `pair.tersoff.force`, and counts
@@ -44,9 +44,9 @@ import math
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
-from .eam_kernels import tally_sums
-from .pair_kernels import stencil
+from .pair_kernels import stencil, tally_sums
 
 SOURCE = cuda_build.CSRC / "tersoff_cell.cu"
 NPAR = 14  # models/pair_tersoff.FIELDS
@@ -392,8 +392,6 @@ def compute(style, state, cl, eflag: bool, vflag: bool):
     """(f, pe, virial) of the three-body style on a SortedCells state: the
     short list, then the force pass, or its tally instance on an
     energy/virial call (pe and virial None where not asked for)."""
-    from ..utils import trace
-
     p = cl.params
     prd = state.box.prd.to(state.dtype)
     x = state.x.contiguous()

@@ -174,8 +174,10 @@ ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
             + [ctypes.c_double] * 4 + [ctypes.c_void_p])
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the ctypes signatures of a build of lj_column_half.cu."""
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (once per source and flag set) and load the kernel library."""
+    lib = cuda_build.load(SOURCE)
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"lj_column_half_{suffix}")
         fn.argtypes = ARGTYPES
@@ -183,18 +185,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (once per source and flag set) and load the kernel library."""
-    return bind(cuda_build.load(SOURCE))
-
-
-def launch(name, key, ncells, idcap, fl, prd, zb=None, lib=None):
-    """One call of pass `name` on the [nx*ny*nz, cc] channels `fl` through
-    `lib` (default: this tree's library; a build of lj_column_half.cu bound
-    with `bind` otherwise): the outputs' zeroing, the pass and its fold.
-    Returns three [nx*ny*nz, cc] force views, and rc for `writeonce`.
-    Counts nothing."""
+def launch(name, key, ncells, idcap, fl, prd, zb=None):
+    """One call of pass `name` on the [nx*ny*nz, cc] channels `fl`: the
+    outputs' zeroing, the pass and its fold. Returns three [nx*ny*nz, cc]
+    force views, and rc for `writeonce`. Counts nothing."""
     _, lj1, lj2, cutsq = key
     check_pad_cutoff(cutsq)
     check_launch(fl, prd)
@@ -216,8 +210,7 @@ def launch(name, key, ncells, idcap, fl, prd, zb=None, lib=None):
     elif walk["react"] == "target":  # 5 blocks a cell, 4 values a row
         rc = torch.zeros((4 if dt == torch.float32 else 3) * len(TARGETS)
                          * rows, dtype=dt, device=dev)
-    lib = _library() if lib is None else lib
-    fn = getattr(lib, "lj_column_half_"
+    fn = getattr(_library(), "lj_column_half_"
                  + ("f32" if dt == torch.float32 else "f64"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

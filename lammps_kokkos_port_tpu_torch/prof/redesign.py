@@ -1,12 +1,12 @@
-"""The harness of the parent-versus-new kernel timings (`prof.lj_redesign`,
-`prof.eam_redesign`): an earlier tree's library built beside this tree's,
-inputs jittered from a seed, each kernel held against its plain twin and
-timed by its device time per call, the kernels in turns. Card only.
+"""Helpers of the card-only kernel timings (`chip_smoke.py`,
+`prof.tersoff`, `prof.rebin`): the card's name and power limit, a source's
+register counts from its build log, inputs jittered from a seed, a kernel
+held against its plain twin, and each kernel's device time per call from
+checked torch.profiler traces, the kernels in turns.
 """
 
 from __future__ import annotations
 
-import ctypes
 import statistics
 import subprocess
 from pathlib import Path
@@ -39,19 +39,6 @@ def registers(source: Path) -> list:
         return []
     return [int(line.split("Used ")[1].split()[0])
             for line in log.read_text().splitlines() if "Used " in line]
-
-
-def parent_library(source: Path, argtypes: dict) -> ctypes.CDLL:
-    """An earlier tree's library of `source`, built if need be, with the
-    entry points `<stem>_f32` and `<stem>_f64` of each stem in `argtypes`
-    bound to that stem's ctypes argument types."""
-    lib = cuda_build.load(source)
-    for stem, types in argtypes.items():
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{stem}_{suffix}")
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def jittered(sim, dtype, amplitude: float) -> torch.Tensor:

@@ -123,43 +123,33 @@ class Simulation:
         self.state = self.state.replace(f=f)
 
     def _pick_list_mode(self):
-        """List mode "cell" is taken when asked for (the explicit-mode
-        branch of the JAX `_pick_list_mode`), for a pair_terms style or a
-        dense two-pass style (single-element EAM). The cell-major sorted
-        mode needs a single-type lj/cut style, or a dense two-pass style
-        with list_mode "sorted" (the JAX package runs EAM on its
-        exact-spline matrix engine in mode "auto"), or a three-body style
-        (Tersoff) in mode "auto" or "sorted". All need a fully periodic
-        orthogonal box. The JAX package falls back to other engines
-        otherwise; those are not ported, so this raises instead of drifting
-        onto another path."""
-        pair = self.pair_style
+        """The list mode the request resolves to, as the pair style states
+        where it runs (its `force_paths`, models/pair.ForcePaths): "cell"
+        or "sorted" where the style runs in that mode; "auto" is "sorted"
+        unless the style refuses it. All need a fully periodic orthogonal
+        box.
+        The JAX package falls back to other engines otherwise; those are
+        not ported, so this raises instead of drifting onto another
+        path."""
         box = self.state.box
         if not all(box.periodic) or box.triclinic:
             raise NotImplementedError(
                 f"list mode {self.list_mode_req!r} needs a fully periodic "
                 "orthogonal box")
-        if self.list_mode_req == "cell":
-            if not (hasattr(pair, "pair_terms")
-                    or getattr(pair, "dense_two_pass", False)):
-                raise NotImplementedError(
-                    f"cell mode needs a pair_terms style or a single-element "
-                    f"EAM style, not {type(pair).__name__}")
-            self.list_mode = "cell"
-            return
-        if getattr(pair, "dense_two_pass", False):
-            if self.list_mode_req != "sorted":
-                raise NotImplementedError(
-                    "EAM in list mode 'auto' runs the exact-spline matrix "
-                    "engine in the JAX package, which is not ported; pass "
-                    "list_mode='sorted' for the dense Chebyshev path")
-        elif not getattr(pair, "three_body", False):
-            kk = getattr(pair, "kernel_key", None)
-            if kk is None or kk() is None:
-                raise NotImplementedError(
-                    "sorted mode needs a single-type lj/cut style, a "
-                    "single-element EAM style or a three-body style")
-        self.list_mode = "sorted"
+        paths = self.pair_style.force_paths
+        mode = self.list_mode_req
+        if mode == "auto":
+            if paths.auto_refused:
+                raise NotImplementedError(paths.auto_refused)
+            mode = "sorted"
+        if mode not in paths.modes:
+            raise NotImplementedError(
+                f"cell mode needs a pair_terms style or a single-element "
+                f"EAM style, not {type(self.pair_style).__name__}"
+                if mode == "cell" else
+                "sorted mode needs a single-type lj/cut style, a "
+                "single-element EAM style or a three-body style")
+        self.list_mode = mode
 
     def _build_list(self, state, params):
         if self.list_mode == "cell":
@@ -287,11 +277,13 @@ class Simulation:
         self,
         nsteps: int,
         thermo_every: int = 0,
-        print_thermo: bool = False,
+        on_row=None,
     ) -> list[dict]:
         """Advance nsteps; emit thermo rows at the cadence (incl. first and
         last), like Output::setup/write (ref: src/output.cpp:189,339).
-        Non-finite thermo raises (the lost-atom / NaN guard)."""
+        `on_row(row)`, where given, sees each row as it is made (with its
+        "step") and may add to it in place. Non-finite thermo raises (the
+        lost-atom / NaN guard)."""
         if self.nl is None:
             self.setup()
         self.state = self.integrator.refresh_segment(self.state)
@@ -301,8 +293,8 @@ class Simulation:
             row = self.thermo()
             row["step"] = step_no
             rows.append(row)
-            if print_thermo:
-                _print_thermo_row(row)
+            if on_row is not None:
+                on_row(row)
             if not all(math.isfinite(v) for v in row.values()
                        if isinstance(v, float)):
                 raise RuntimeError(
@@ -423,9 +415,3 @@ class Simulation:
             row[k] = float(hi[d])
         return row
 
-
-def _print_thermo_row(row: dict):
-    print(
-        f"{row['step']:>10d} {row['temp']:>14.8g} {row['epair']:>14.8g} "
-        f"{row['emol']:>14.8g} {row['etotal']:>14.8g} {row['press']:>14.8g}"
-    )

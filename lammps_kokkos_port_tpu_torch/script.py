@@ -764,9 +764,11 @@ class LammpsScript:
         return self.thermo_style or ["step", "temp", "epair", "emol",
                                      "etotal", "press"]
 
-    def _emit_thermo_row(self, sim, step_no, t0):
-        row = sim.thermo()
-        row["step"] = step_no
+    def _emit_thermo_row(self, sim, row, t0):
+        """Completes a thermo row of `sim.run` in place (its keywords
+        beyond the runner's), prints it, raises on a non-finite value, and
+        returns it."""
+        step_no = row["step"]
         row["atoms"] = row["natoms"]
         row["cpu"] = time.perf_counter() - t0
         row["elapsed"] = step_no - self._first_step
@@ -827,21 +829,10 @@ class LammpsScript:
         self._first_step = sim.ntimestep
         self._thermo_prev = (sim.ntimestep, 0.0)
         self._run_end = sim.ntimestep + nsteps
-        with trace.span("run"):
-            rows = [self._emit_thermo_row(sim, sim.ntimestep, t0)]
-            done = 0
-            while done < nsteps:
-                nxt = nsteps
-                if self.thermo_every > 0:
-                    nxt = min(nxt, ((done // self.thermo_every) + 1)
-                              * self.thermo_every)
-                seg = nxt - done
-                sim._run_segment_retry(seg)
-                sim.ntimestep += seg
-                done = nxt
-                rows.append(self._emit_thermo_row(sim, sim.ntimestep, t0))
-            if sim.state.x.is_cuda:
-                torch.cuda.synchronize(sim.state.x.device)
+        rows = sim.run(nsteps, self.thermo_every,
+                       lambda row: self._emit_thermo_row(sim, row, t0))
+        if sim.state.x.is_cuda:
+            torch.cuda.synchronize(sim.state.x.device)
         loop = time.perf_counter() - t0
         n = rows[-1]["natoms"]
         rate = nsteps / loop if loop > 0 else float("inf")

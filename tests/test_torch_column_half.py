@@ -1,6 +1,9 @@
 """PyTorch port, P2, P5, P8 and P11: the plain twins of the Newton-half
 column passes (prof/column_half_kernels) against the scripts' Pallas bodies
-in interpret mode on the CPU, and the four entry points.
+in interpret mode on the CPU, the four entry points, and the passes'
+launch surface: the z chunks each pass is compiled for
+(column_half_kernels.ZB), the bytes each pass's bound counts and the names
+its build log's registers are reported under.
 
 The bodies of benchmarks/prof/prof_kernel_iso.py (`build`),
 prof_halfv2.py (`make_v2`) and prof_kernel_writeonce.py (`_wo_kernel`)
@@ -421,3 +424,65 @@ def test_entry_points_print_every_label(capsys):
     assert res[kernel_iso]["parity vs full"] < 1e-4
     assert max(res[kernel_writeonce][f"parity f{n}"] for n in "xyz") < 1e-4
     assert res[halfv2]["v2 zb=2 approx=True err"] < 1e-4
+
+
+# the passes whose mask reads no ids
+ID_FREE = {"halfv2", "halfv2_approx", "zchunk_fused"}
+
+
+@pytest.mark.parametrize("name", sorted(chk.SPECS))
+def test_z_chunks_are_validated(name):
+    """None is the default block of four cells; every compiled chunk is
+    taken as given; any other raises, on the CPU as on the card."""
+    assert chk.cells_per_block(name) == chk.DEFAULT_ZB == 4
+    for zb in chk.ZB[name]:
+        assert chk.cells_per_block(name, zb) == zb
+    for zb in (0, 5, 13):
+        with pytest.raises(ValueError, match="is not compiled"):
+            chk.cells_per_block(name, zb)
+
+
+def test_z_chunks_are_the_entry_points():
+    """prof.halfv2 asks for 2 and 4; prof.zchunk for nz (12 at the 20-cell
+    melt, 3 at the 6-cell one), 4, 2 and 1; no other pass takes one."""
+    assert chk.ZB["halfv2"] == chk.ZB["halfv2_approx"] == (2, 4)
+    for name in ("zchunk_fwd", "zchunk_fused"):
+        assert set(chk.ZB[name]) == {1, 2, 3, 4, 12}
+    assert all(chk.ZB[n] == (4,) for n in chk.SPECS
+               if not n.startswith(("halfv2", "zchunk")))
+
+
+@pytest.mark.parametrize("name", sorted(chk.SPECS))
+def test_bound_counts_inputs_and_outputs_only(name):
+    """Each pass's bound moves its input planes once (x, y, z and, where
+    its mask reads them, the ids) and its outputs once (three force
+    planes; P8's rc, 15 more): at the 32k grid, (12, 12, 12) x cc 32 in
+    f32, 7 planes take 0.000462 ms at 3.35 TB/s."""
+    planes = chk.bound_planes(name)
+    want = (6 if name in ID_FREE else 7) + (15 if name == "writeonce" else 0)
+    assert planes == want
+    rows = 12 ** 3 * 32
+    ms = rows * planes * 4 / 3.35e12 * 1e3
+    expected = {6: 0.000396, 7: 0.000462, 22: 0.001453}[planes]
+    assert round(ms, 6) == expected
+
+
+def test_instance_registers_name_each_kernel():
+    """The build log's registers, in order, under each instance's
+    template arguments (in the form cu++filt prints them) or its raw
+    name."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function 'void <unnamed>::"
+        "column_half_kernel<float, (<unnamed>::Mask)2, (bool)1, (<unnamed>"
+        "::Land)3, (int)12>(<unnamed>::Args<T1>)' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "ptxas info    : Used 64 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function 'void <unnamed>::"
+        "column_half_kernel<double, (<unnamed>::Mask)4, (bool)0, (<unnamed>"
+        "::Land)1, (int)4>(<unnamed>::Args<T1>)' for 'sm_90a'",
+        "ptxas info    : Used 56 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Zfold' for 'sm_90a'",
+        "ptxas info    : Used 20 registers, 380 bytes cmem[0]"])
+    assert chk.instance_registers(log) == [
+        ("f32 slot approx target zb=12", 64),
+        ("f64 unstaged row zb=4", 56), ("_Zfold", 20)]

@@ -1,4 +1,5 @@
-"""PyTorch port, host state: presets, Box transforms and import hygiene.
+"""PyTorch port, host state: presets, Box transforms, import hygiene, and
+the list mode each pair style resolves to.
 
 The same seeded inputs go through the JAX package and the port
 (lammps_kokkos_port_tpu_torch); fp64 results must agree bit for bit.
@@ -19,7 +20,12 @@ from lammps_kokkos_port_tpu.presets import lj_melt_pair as jax_lj_melt_pair
 from lammps_kokkos_port_tpu.presets import lj_melt_state as jax_lj_melt_state
 from lammps_kokkos_port_tpu_torch import interop
 from lammps_kokkos_port_tpu_torch.core.box import Box
+from lammps_kokkos_port_tpu_torch.io.eam_reader import write_sutton_chen_funcfl
+from lammps_kokkos_port_tpu_torch.models.pair_eam import make_eam_funcfl
+from lammps_kokkos_port_tpu_torch.models.pair_lj import make_lj_cut
+from lammps_kokkos_port_tpu_torch.models.pair_tersoff import make_tersoff
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_state
+from lammps_kokkos_port_tpu_torch.runner import Simulation
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -100,3 +106,55 @@ def test_port_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+SORTED_REFUSED = ("sorted mode needs a single-type lj/cut style, a "
+                  "single-element EAM style or a three-body style")
+# (style, list mode asked for) -> the mode taken, or the refusal's text
+LIST_MODES = {
+    ("lj", "auto"): "sorted", ("lj", "sorted"): "sorted",
+    ("lj", "cell"): "cell",
+    ("lj 2 types", "auto"): SORTED_REFUSED,
+    ("lj 2 types", "sorted"): SORTED_REFUSED,
+    ("lj 2 types", "cell"): "cell",
+    ("eam", "auto"): "EAM in list mode 'auto' runs the exact-spline matrix",
+    ("eam", "sorted"): "sorted", ("eam", "cell"): "cell",
+    ("eam 2 elements", "auto"): SORTED_REFUSED,
+    ("eam 2 elements", "sorted"): SORTED_REFUSED,
+    ("eam 2 elements", "cell"): "cell mode needs a pair_terms style or a "
+                                "single-element EAM style, not PairEAM",
+    ("tersoff", "auto"): "sorted", ("tersoff", "sorted"): "sorted",
+    ("tersoff", "cell"): "cell mode needs a pair_terms style or a "
+                         "single-element EAM style, not PairTersoff",
+}
+
+
+def _style(name, tmp_path):
+    if name.startswith("lj"):
+        nt = 2 if "2" in name else 1
+        return make_lj_cut(nt, {(t, t): (1.0, 1.0) for t in range(1, nt + 1)},
+                           2.5, dtype=torch.float64)
+    if name.startswith("eam"):
+        pot = str(tmp_path / "cu.eam")
+        write_sutton_chen_funcfl(pot)
+        nt = 2 if "2" in name else 1
+        return make_eam_funcfl(nt, {t: pot for t in range(1, nt + 1)})
+    return make_tersoff(1, str(REPO / "bench_port/configs/Si.tersoff"),
+                        ["Si"])
+
+
+@pytest.mark.parametrize("name,mode", sorted(LIST_MODES))
+def test_list_mode_follows_the_style(name, mode, tmp_path):
+    """Each style's `force_paths` decides the list mode: the mode it runs
+    in, or NotImplementedError naming why (never another engine)."""
+    sim = Simulation(lj_melt_state(cells=4, dtype=torch.float64,
+                                   device="cpu"),
+                     _style(name, tmp_path), list_mode=mode)
+    want = LIST_MODES[name, mode]
+    if want in ("sorted", "cell"):
+        sim._pick_list_mode()
+        assert sim.list_mode == want
+        assert want in sim.pair_style.force_paths.modes
+    else:
+        with pytest.raises(NotImplementedError, match=want):
+            sim._pick_list_mode()

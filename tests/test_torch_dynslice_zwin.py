@@ -24,6 +24,15 @@ their `pl.pallas_call` is put in interpret mode.
   leaves 7 e^2 <= 7 * 2^-16 of that scale, plus f32 rounding). Planted
   faults (a window start moved by one, a neighbour column off by one) fail
   that check.
+- P12 as two gathers (`zwin_gathers` below, a test aid that stays off the
+  card path): each forward sum fT*[8k + i, c] over its own atom's lanes,
+  and each reaction fL*[c, p] over the own atoms whose windows hold the
+  candidate e*[c, p] (the own window of c: chunks k with l = p - G - 8k
+  in [0, WS), atoms i < l; for each w the source column c - off_w at its
+  row-0 start st: chunks k with p - st - k in [0, WN), all 8 atoms). Held
+  against `zwin_reference` and the script's kernel, per element to the
+  same scale within SCALED_RTOL, at NCOL 26, 2 and 12. The starts moved by
+  one must fail that check.
 """
 
 import ast
@@ -216,3 +225,108 @@ def test_entry_points_print_every_label(capsys):
     assert "zwin proto kernel: " in out and "vs lj_cell_force" in out
     assert "0.327" not in out and "atom-steps" not in out
     assert set(res) == {"zwin proto kernel", "lj_cell_force"}
+
+
+# P12 as the kernel's two gathers (`zwin_gathers`, a test aid that stays
+# off the card path), at the small shape, at NCOL 2 (the +1 and -1 windows
+# read one column, +-12 the column itself) and NCOL 12 (+-12 the column
+# itself): each w stays its own term
+GATHER_SHAPES = {"small": SMALL,
+                 "ncol 2": zk.ZwinShape(ncol=2, s=64),
+                 "ncol 12": zk.ZwinShape(ncol=12, s=64)}
+
+
+def _fpair(d):
+    """The twin's pair math on displacements d [3, ...]: r2 rounded as the
+    kernel rounds it, fpair within the cutoff (exact reciprocal, one
+    Newton step), 0 outside."""
+    r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    valid = r2 < zk.CUTSQ
+    y = 1.0 / torch.where(valid, r2, 1.0)
+    r2i = y * (2.0 - r2 * y)
+    r6 = r2i * r2i * r2i
+    return torch.where(valid, r6 * (zk.LJ1 * r6 - zk.LJ2) * r2i, 0.0)
+
+
+def zwin_gathers(ex, ey, ez, xT, yT, zT, starts, shape):
+    """P12 as the kernel's two gathers, each output computed once from the
+    pairs that reach it; returns (fTx, fTy, fTz, fLx, fLy, fLz)."""
+    own8, npc, se = zk.OWN, shape.npc, shape.se
+    ncol = shape.ncol
+    e = torch.stack([ex, ey, ez])             # [3, NCOL, SE]
+    o = torch.stack([xT, yT, zT])             # [3, S, NCOL]
+    st0 = starts[:, 0, :].long()              # [NCOL, 4]
+    col = torch.arange(ncol)
+    # forward: own atom r = 8k + i of column c over its lanes
+    r = torch.arange(shape.s)
+    k, i = r // own8, r % own8
+    lane = torch.arange(shape.ws)
+    pos = shape.g + own8 * k[:, None] + lane                    # [S, WS]
+    cand = e[:, col[None, :, None], pos[:, None, :]]       # [3, S, NCOL, WS]
+    d = o[..., None] - cand
+    fp = _fpair(d) * (lane[None, :] > i[:, None])[:, None, :]
+    fT = (d * fp).sum(-1)
+    m = torch.arange(shape.wn)
+    for w, off in enumerate(shape.offsets):
+        nb = torch.remainder(col + off, ncol)                   # [NCOL]
+        pos = st0[None, :, w, None] + k[:, None, None] + m      # [S, NCOL, WN]
+        cand = e[:, nb[None, :, None], pos]
+        d = o[..., None] - cand
+        fT = fT + (d * _fpair(d)).sum(-1)
+    # reactions: element (c, p) over the own atoms whose windows hold it
+    p = torch.arange(se)
+    kk = torch.arange(npc)
+    atoms = o.reshape(3, npc, own8, ncol)                   # [3, NPC, 8, NCOL]
+    cand = e[..., None, None]                           # [3, NCOL, SE, 1, 1]
+    l = p[:, None] - shape.g - own8 * kk[None, :]                # [SE, NPC]
+    take = ((l[..., None] > torch.arange(own8)) & (l < shape.ws)[..., None])
+    d = atoms.permute(0, 3, 1, 2)[:, :, None] - cand  # [3, NCOL, SE, NPC, 8]
+    fL = -(d * _fpair(d) * take).sum((-1, -2))
+    for w, off in enumerate(shape.offsets):
+        src = torch.remainder(col - off, ncol)
+        st = st0[src, w]                                        # [NCOL]
+        m = p[None, :, None] - st[:, None, None] - kk  # [NCOL, SE, NPC]
+        take = ((m >= 0) & (m < shape.wn))[..., None]
+        d = atoms[:, :, :, src].permute(0, 3, 1, 2)[:, :, None] - cand
+        fL = fL - (d * _fpair(d) * take).sum((-1, -2))
+    return (*fT, *fL)
+
+
+@pytest.fixture(scope="module", params=sorted(GATHER_SHAPES))
+def gathers_case(request):
+    """(shape, inputs, the script's kernel's outputs, the twin's scale)."""
+    shape = GATHER_SHAPES[request.param]
+    zw = load_definitions("prof_zwin_proto", NCOL=shape.ncol, S=shape.s,
+                          SE=shape.se, NPC=shape.npc)
+    inputs = zk.zwin_inputs(shape, seed=0)
+    prd = jnp.asarray(np.array([33.6, 33.6, 33.6], np.float32))
+    ref = [torch.from_numpy(np.array(a)) for a in
+           zw.run(*(jnp.asarray(a.numpy()) for a in inputs), prd)]
+    scale = zk.zwin_reference(*inputs, shape=shape, magnitude=True)
+    return shape, inputs, ref, scale
+
+
+def test_zwin_gathers_match_the_twin_and_the_script_kernel(gathers_case):
+    shape, inputs, ref, scale = gathers_case
+    got = zwin_gathers(*inputs, shape)
+    twin = zk.zwin_reference(*inputs, shape=shape)
+    assert [a.shape for a in got] == [a.shape for a in ref]
+    assert all(a.abs().max().item() > 0.1 for a in ref)  # live sums
+    assert zk.max_scaled_error(got, twin, scale) <= SCALED_RTOL
+    assert zk.max_scaled_error(got, ref, scale) <= SCALED_RTOL
+    # every position of fL that no window covers is 0 in all three
+    for a, b in zip(got[3:], ref[3:]):
+        assert torch.equal(a == 0, b == 0)
+
+
+def test_zwin_gathers_keep_coinciding_sources_apart(gathers_case):
+    """At NCOL 2 the +1 and -1 windows read one column and +-12 the column
+    itself, at NCOL 12 +-12 the column itself: the match above held each w
+    as its own term there. The starts moved by one fail the scaled
+    check."""
+    shape, inputs, ref, scale = gathers_case
+    nsrc = {len({(c - off) % shape.ncol for off in shape.offsets})
+            for c in range(shape.ncol)}
+    assert nsrc == {2: {2}, 12: {3}, 26: {4}}[shape.ncol]
+    moved = zwin_gathers(*inputs[:-1], inputs[-1] + 1, shape)
+    assert zk.max_scaled_error(moved, ref, scale) > 0.1

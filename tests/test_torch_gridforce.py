@@ -1,6 +1,7 @@
 """PyTorch port, energy/virial path of thermo steps against JAX.
 
-`sortedforce.compute` with eflag/vflag takes the grid-roll path
+lj/cut's sorted path with eflag/vflag (`pair_kernels.compute_sorted` in
+the port, `sortedforce.compute` in JAX) takes the grid-roll path
 (ops/gridforce) in both packages. Same jittered sorted state, fp64:
 forces atol 1e-11, energy and virial rel 1e-12 (only the summation order
 differs).
@@ -18,6 +19,7 @@ from lammps_kokkos_port_tpu.ops import sortedforce as jax_sf
 from lammps_kokkos_port_tpu.presets import lj_melt_pair as jax_lj_melt_pair
 from lammps_kokkos_port_tpu.presets import lj_melt_state as jax_lj_melt_state
 from lammps_kokkos_port_tpu_torch import interop
+from lammps_kokkos_port_tpu_torch.ops import pair_kernels
 from lammps_kokkos_port_tpu_torch.ops import sortedforce as sf
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 
@@ -46,7 +48,7 @@ def test_gridforce_matches_jax():
     pair = interop.pair_from_arrays(interop.dataclass_to_arrays(jpair))
     cl = sf.SortedCells(ago=0, nbuilds=1, overflow=torch.tensor(False),
                         params=p)
-    f, pe, vir = sf.compute(pair, st, cl, True, True)
+    f, pe, vir = pair_kernels.compute_sorted(pair, st, cl, True, True)
 
     np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), rtol=0,
                                atol=1e-11)

@@ -36,7 +36,6 @@ from lammps_kokkos_port_tpu_torch.ops.half_kernels import (
 )
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import lj_cell_force
 from lammps_kokkos_port_tpu_torch.ops.sortedforce import PAD_POS, PAD_STEP
-from lammps_kokkos_port_tpu_torch.prof import half_redesign
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -291,20 +290,3 @@ def test_pad_cutoff_raises_off_the_cpu_only(fn):
                                                           dtype=torch.float64))
         assert all(torch.equal(a, torch.zeros_like(a)) for a in f)
 
-
-@pytest.mark.parametrize("name", sorted(half_redesign.VARIANTS))
-def test_redesign_variants_assemble(name, tmp_path):
-    """prof/half_redesign builds each other design of K8's reactions from a
-    copy of this tree's source: the structs it replaces and the walk lines
-    it hooks must each be found once, so an edit to either fails here and
-    not first on the card."""
-    edits, _ = half_redesign.VARIANTS[name]
-    out = half_redesign.variant_source(tmp_path, edits)
-    text = out.read_text()
-    original = SOURCE.read_text()
-    for struct, make in edits.items():
-        assert make(half_redesign._struct(original, struct)) in text
-    walk = (tmp_path / "cell_walk.cuh").read_text()
-    assert all(new in walk for _, new in half_redesign.WALK_HOOKS)
-    assert {p.name for p in tmp_path.glob("*.cuh")} == {
-        p.name for p in SOURCE.parent.glob("*.cuh")}

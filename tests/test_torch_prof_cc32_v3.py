@@ -15,6 +15,11 @@ and one 0.84 from a real row of its cell, inside the cutoff. That pad tells
 the masks apart: P3 skips a padding own row (own_id >= 0), P5 `full` does
 not; P6 skips a padding candidate (cand_id >= 0), K7 does not. Tolerances:
 f64 rtol 1e-10 with atol 1e-10*max|f| (the sums run in another order).
+
+P6 k2's twin, `v3_reference(grouped=True)`, is also held against the
+copied `k2_kernel` on the grids the column walk is held on beyond the
+melt: 1, 2 and 3 cells per dim and cc 64 (lattice grids, pads
+interleaved, float ids), f64, at the same tolerance.
 """
 
 import jax
@@ -38,6 +43,7 @@ from lammps_kokkos_port_tpu_torch.prof import (
     grid,
     kernel_cc32,
     kernel_v3,
+    planted,
     v3_kernels,
 )
 
@@ -525,3 +531,49 @@ def test_entry_points_print_every_label(capsys):
     # cells 6 in f32 overflows cc 32 (33 atoms in a cell): the run raises
     with pytest.raises(RuntimeError, match="overflowed"):
         kernel_cc32.main(cells=6, device="cpu", k1=1, k2=2)
+
+
+# P6 k2's twin on the grids the column walk is held on beyond the melt: 1,
+# 2 and 3 cells per dim and cc 64 (lattice grids, pads interleaved, float
+# ids), f64, rtol 1e-10 with atol 1e-10*max: the sums run in another order
+KEY = ("lj", 48.0, 24.0, 6.25)
+EDGE_GRIDS = [((1, 1, 1), 16), ((2, 2, 4), 32), ((3, 3, 3), 32),
+              ((3, 3, 4), 64)]
+
+
+def _edge_grid(ncells, cc):
+    """A lattice grid (jittered atoms at random lanes among pads, float
+    ids) as the column walk's tests build it, f64: ([gx, gy, gz, gi], prd)."""
+    ncell = ncells[0] * ncells[1] * ncells[2]
+    counts = [(c * 5) % (min(cc, 32) // 2) + 2 for c in range(ncell)]
+    if cc > 32:
+        counts[ncell // 2] = 40  # two row passes of one warp
+    g, prd, valid = planted.lattice_grid(ncells, cc, counts, 5,
+                                         torch.float64, "cpu")
+    ids = torch.where(valid, torch.arange(valid.numel()).reshape(
+        valid.shape), -1).to(torch.float64)
+    shape = (ncells[0] * ncells[1], ncells[2], cc)
+    col = [a.reshape(shape) for a in (*g, ids)]
+    return col, prd
+
+
+@pytest.mark.parametrize("ncells,cc", EDGE_GRIDS)
+def test_k2_twin_matches_the_script_body_on_edge_grids(ncells, cc):
+    col, prd = _edge_grid(ncells, cc)
+    calls = v3_calls_of(KEY, ncells, cc, jnp.float64,
+                        jnp.asarray(prd.numpy()), jnp.asarray(col[3].numpy()))
+    ref = [torch.from_numpy(np.array(a)) for a in
+           calls["k2"](*(jnp.asarray(a.numpy()) for a in col[:3]))]
+    args = (KEY, ncells, *col, prd)
+    twin = v3_kernels.v3_reference(*args, grouped=True)
+    launches = v3_kernels.v3_k2.launches
+    got = v3_kernels.v3_k2(*args)
+    assert v3_kernels.v3_k2.launches == launches  # CPU: the plain twin
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
+    vmax = max(a.abs().max().item() for a in ref)
+    assert vmax > 0.01  # pairs within the cutoff
+    for a, b in zip(twin, ref):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * vmax)
+    # the same forces as k1, summed in another order
+    for a, b in zip(twin, v3_kernels.v3_reference(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10 * vmax)

@@ -127,7 +127,8 @@ def test_reader_and_style():
     assert (e["m"], e["n"], e["biga"], e["bigr"], e["bigd"]) == (
         3.0, 22.956, 3264.7, 3.0, 0.2)
     style = make_tersoff(1, POT, ["Si"])
-    assert style.three_body and style.max_cutoff() == 3.2
+    assert set(style.force_paths.modes) == {"sorted"}
+    assert style.max_cutoff() == 3.2
     with pytest.raises(NotImplementedError, match="single element"):
         make_tersoff(2, POT, ["Si", "Si"])
     ref = REF_TERSOFF.read(POT)
