@@ -13,10 +13,16 @@ checks them on the card:
      main path's grids (32k-atom deck and 1M-atom deck), f32 and f64, with
      positions jittered by a seeded +-0.05 so forces are not lattice zeros;
      max abs error, the kernel's device time, the plain version's time;
+     the thermo rows' tally instance against its twin on the same inputs
+     (forces, pe plane, virial planes, pe and virial summed over the valid
+     rows; the f32 virial as accurate as the f32 twin against an f64
+     evaluation) and its forces against the step kernel's, its device
+     time, plain time and bound;
   3. golden step 0: examples/melt in f64 against the reference's log;
   4. the LJ main path: the 32k-atom bench/in.lj melt in f32, setup() +
      run(1000, thermo_every=100), with the kernel's launch count over that
-     run, energy drift and the slope-timed step rate;
+     run and the tally instance's (one a thermo row), energy drift and the
+     slope-timed step rate;
   5. the 1M-atom deck (cells=63), f32, 200 steps, same checks, and a
      torch.profiler split of one segment (the kernel, re-binning, rest);
   6. the EAM kernels against their plain versions at the eam-32k grid
@@ -259,6 +265,12 @@ EAM_FP_ROW_OPS = 2 + 1 + 2 + (2 + 3 * 80) + 2
 EAM_E_ROW_OPS = (2 + 3 * 81) + 3
 EAM_FORCE_TALLY_PAIR_OPS = EAM_FORCE_PAIR_OPS + (2 + 3 * 29) + 1 + 6 * 3
 EAM_TALLY_ROW_OPS = 7 + 1
+# the lj tally instance: lj's pair work, the energy r6inv (lj3 r6inv - lj4)
+# - offset 4 and its sum 1, the six virial products with their sums, 3
+# each; per valid row the halving of the seven planes. Bytes per row: x, y,
+# z in, 3 forces and 7 planes out.
+LJ_TALLY_PAIR_OPS = LJ_PAIR_OPS + 4 + 1 + 6 * 3
+LJ_TALLY_ROW_OPS = 7
 # Tersoff, as bench_port/roofline/kernels/tersoff_*.json count it (the
 # derivations are there): the short list 18 a pair within R + D; the force
 # pass 126 a pair and 95 an ordered triplet. The tally instance adds, per
@@ -566,6 +578,80 @@ def kernel_vs_plain(sim, dtype, label: str) -> dict:
                            "tolerance")
     return {"max_abs_err": max_abs, "ms": dev_ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, **bound}
+
+
+def lj_tally_vs_plain(sim, dtype, label: str) -> dict:
+    """Phase 2's tally instance on one grid and dtype: `lj_cell_force_tally`
+    against its twin on phase 2's jittered inputs, its sums over the valid
+    rows, and its forces against the step kernel's; device time, plain
+    time and bound."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import pair_kernels as pk
+
+    st, p = sim.state, sim.nl.params
+    gen = torch.Generator(device=st.device).manual_seed(SEED)
+    jitter = (torch.rand(st.x.shape, generator=gen, device=st.device,
+                         dtype=torch.float64) - 0.5) * 0.1
+    x = torch.where(st.valid_mask[:, None], st.x.double() + jitter,
+                    st.x.double()).to(dtype)
+    g = x.t().contiguous().reshape(3, p.total_cells, p.cell_cap)
+    prd = st.box.prd.to(dtype)
+    args = (sim.pair_style.tally_key(), p.ncells, g[0], g[1], g[2], prd)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-10
+    f, tally = pk.lj_cell_force_tally(*args)
+    f_ref, tally_ref = pk.lj_cell_force_tally_reference(*args)
+    err = max(check_close(f"{label} lj_cell_force_tally forces", f, f_ref,
+                          rtol),
+              check_close(f"{label} lj_cell_force_tally pe plane", tally[0],
+                          tally_ref[0], rtol))
+    sums = pk.tally_sums(tally, st.valid_mask)
+    sums_ref = pk.tally_sums(tally_ref, st.valid_mask)
+    sum_rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    pe_gap = abs(sums[0].item() / sums_ref[0].item() - 1)
+    if pe_gap > sum_rtol:
+        raise RuntimeError(f"{label} lj tally pe {sums[0].item():.17g} "
+                           f"against the twin's {sums_ref[0].item():.17g}: "
+                           f"rel {pe_gap:.3e} > {sum_rtol:g}")
+    if dtype == torch.float64:
+        vir_err = check_close(f"{label} lj_cell_force_tally virial planes",
+                              tally[1:], tally_ref[1:], rtol)
+        check_close(f"{label} lj tally virial sums", sums[1:], sums_ref[1:],
+                    sum_rtol)
+    else:
+        exact = pk.lj_cell_force_tally_reference(
+            args[0], p.ncells, *(a.double() for a in (g[0], g[1], g[2],
+                                                      prd)))[1]
+        vir_err = check_as_accurate(
+            f"{label} lj_cell_force_tally virial planes", tally[1:],
+            tally_ref[1:], exact[1:], 1e-4)
+        check_as_accurate(f"{label} lj tally virial sums", sums[1:],
+                          sums_ref[1:],
+                          pk.tally_sums(exact, st.valid_mask)[1:], 1e-5)
+        del exact
+    step_apart = check_close(
+        f"{label} lj_cell_force_tally forces vs lj_cell_force", f,
+        pk.lj_cell_force(sim.pair_style.kernel_key(), *args[1:]),
+        8 * torch.finfo(dtype).eps)
+    dev_ms = one_device_ms(lambda: pk.lj_cell_force_tally(*args))
+    plain_ms = cuda_ms(lambda: pk.lj_cell_force_tally_reference(*args),
+                       reps=5, warmup=1)
+    rows = p.total_cells * p.cell_cap
+    bound = bound_of(grid_pairs(p.ncells, g[0], g[1], g[2], prd, args[0][-1]),
+                     LJ_TALLY_PAIR_OPS, rows * 13 * g.element_size(), dtype,
+                     row_ops=int(st.valid_mask.sum()) * LJ_TALLY_ROW_OPS)
+    log(f"[tally] {label} lj: pe {sums[0].item():.17g} (twin "
+        f"{sums_ref[0].item():.17g}, rel {pe_gap:.3e}); virial "
+        f"{[round(v, 6) for v in sums[1:].tolist()]} (twin max abs apart "
+        f"{(sums[1:] - sums_ref[1:]).abs().max().item():.3e}); planes' max "
+        f"abs err {vir_err:.3e}; forces vs the step kernel's max abs "
+        f"{step_apart:.3e}")
+    log(f"[kernel] {label} lj_cell_force_tally: max abs err {err:.3e}, "
+        f"device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound['pairs']} pairs in the cutoff, bound "
+        f"{bound['bound_ms']:.4g} ms ({bound['bound_by']})")
+    return {"max_abs_err": err, "virial_max_abs_err": vir_err, "ms": dev_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, **bound}
 
 
 def log_walk_launch(name: str, ncells, cc: int, shape) -> None:
@@ -2525,6 +2611,9 @@ def main() -> int:
     kernel_vs_plain(sim32, torch.float64, "32k f64")
     main_cell_1m = kernel_vs_plain(sim1m, torch.float32, "1M f32")
     kernel_vs_plain(sim1m, torch.float64, "1M f64")
+    for deck, size in ((sim32, "32k"), (sim1m, "1M")):
+        for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+            lj_tally_vs_plain(deck, dt, f"{size} {name}")
 
     # 3. golden step 0 (examples/melt/log.8Apr21.melt.g++.1, f64)
     gold = lj_melt_sim(cells=10, t_init=3.0, seed=SEED, dtype=torch.float64,
@@ -2539,16 +2628,22 @@ def main() -> int:
 
     # 4. the main path: 32k melt, 1000 steps, counted launches
     pair_kernels.lj_cell_force.launches = 0
+    pair_kernels.lj_cell_force_tally.launches = 0
     t0 = time.perf_counter()
     rows = sim32.run(1000, thermo_every=100)
     torch.cuda.synchronize()
     loop = time.perf_counter() - t0
     launches = pair_kernels.lj_cell_force.launches
-    log(f"[lj-32k] run(1000): {launches} kernel launches, loop "
-        f"{loop:.3f} s incl. 11 thermo rows, grid "
+    tally_launches = pair_kernels.lj_cell_force_tally.launches
+    log(f"[lj-32k] run(1000): {launches} kernel launches, "
+        f"{tally_launches} tally launches, loop "
+        f"{loop:.3f} s incl. {len(rows)} thermo rows, grid "
         f"{sim32.nl.params.ncells} x cc {sim32.nl.params.cell_cap}")
     if launches <= 0:
         raise RuntimeError("main path never launched the kernel")
+    if tally_launches != len(rows):
+        raise RuntimeError(f"{tally_launches} tally launches for "
+                           f"{len(rows)} thermo rows")
     check_run(sim32, rows, "lj-32k")
     step_rate(sim32, 100, "lj-32k")
 

@@ -49,6 +49,20 @@
 // d alike (ops/pair_kernels.stencil, frame "half"). Only the batches of
 // cells at a face that hold such a tile pay for it (a fifth of the batches
 // at the 32k grid, 7% at 1M: PERF.md has the cost).
+//
+// Tally instance (thermo rows: energy and virial; no TPU kernel, the JAX
+// package left the energy pass to XLA's grid-roll path, which the port ran
+// in plain PyTorch until this one): lj_cell_force_tally_kernel, the same
+// walk on the same geometry, so a row's cutoff decisions are the step's,
+// under its own kernel name, so that the step's kernel keeps its
+// registers, its SASS and its name (by-name readers of the step's kernel
+// see only the step's calls). Its body (LjTallyBody) sums ten values a
+// row: the force, evdwl = r6inv (lj3 r6inv - lj4) - offset, and fpair
+// dx_a dx_b (xx, yy, zz, xy, xz, yz); each row writes its force and seven
+// planes of one [7, rows] buffer, halved, since the 27-cell stencil sees
+// every pair from both rows: pe_i = 1/2 sum_j evdwl and the virial 1/2
+// sum_j fpair dx_a dx_b. The wrapper sums the planes over the valid rows
+// in float64 (no atomics: deterministic).
 
 #include "sorted_grid.cuh"
 
@@ -72,6 +86,66 @@ __global__ void CELL_WALK_BOUNDS lj_cell_force_kernel(
       });
 }
 
+// a pair's two values in the tally instance
+template <typename T> struct LjTerm {
+  T fpair, evdwl;
+};
+
+// pairs an iteration of pass 2 in the tally instance: the faster of one
+// and two in each type (PERF.md section 6)
+template <typename T> constexpr int kTallyPairs = sizeof(T) == 4 ? 2 : 1;
+
+// the lj/cut tally body: fpair as LjBody forms it and evdwl from the same
+// r6inv; acc 0-2 the force, 3 sum evdwl, 4-9 sum fpair dx_a dx_b (xx, yy,
+// zz, xy, xz, yz)
+template <typename T> struct LjTallyBody {
+  static constexpr int kAcc = 10;
+  static constexpr int kPairs = kTallyPairs<T>;
+  T lj1, lj2, lj3, lj4, offset;
+  __device__ LjTerm<T> term(const cell_walk::Cand<T>&,
+                            const cell_walk::Cand<T>&, T r2) const {
+    const T r2inv = T(1) / r2;
+    const T r6inv = r2inv * r2inv * r2inv;
+    return {r6inv * (lj1 * r6inv - lj2) * r2inv,
+            r6inv * (lj3 * r6inv - lj4) - offset};
+  }
+  static __device__ T part(const T (&d)[3], const LjTerm<T>& e, int a) {
+    switch (a) {
+      case 3: return e.evdwl;
+      case 4: return d[0] * e.fpair * d[0];
+      case 5: return d[1] * e.fpair * d[1];
+      case 6: return d[2] * e.fpair * d[2];
+      case 7: return d[0] * e.fpair * d[1];
+      case 8: return d[0] * e.fpair * d[2];
+      case 9: return d[1] * e.fpair * d[2];
+      default: return d[a] * e.fpair;
+    }
+  }
+};
+
+// the walk with each row's tallies: tally[k * rows + row], k = 0 pe
+// (1/2 sum evdwl), 1-6 the virial's halves
+template <typename T>
+__global__ void CELL_WALK_BOUNDS lj_cell_force_tally_kernel(
+    const T* __restrict__ gx, const T* __restrict__ gy,
+    const T* __restrict__ gz, const T* __restrict__ prd,
+    T* __restrict__ fx, T* __restrict__ fy, T* __restrict__ fz,
+    T* __restrict__ tally, int nx, int ny, int nz, int cc, T lj1, T lj2,
+    T lj3, T lj4, T offset, T cutsq) {
+  const long long rows = static_cast<long long>(nx) * ny * nz * cc;
+  sorted_grid::walk_grid<Geo<T>>(
+      {gx, gy, gz, nullptr}, prd, nx, ny, nz, cc, cutsq,
+      LjTallyBody<T>{lj1, lj2, lj3, lj4, offset},
+      [=](int row, const T (&acc)[10]) {
+        fx[row] = acc[0];
+        fy[row] = acc[1];
+        fz[row] = acc[2];
+#pragma unroll
+        for (int k = 0; k < 7; ++k)
+          tally[k * rows + row] = T(0.5) * acc[3 + k];
+      });
+}
+
 template <typename T>
 int launch(const void* gx, const void* gy, const void* gz, const void* prd,
            void* fx, void* fy, void* fz, int nx, int ny, int nz, int cc,
@@ -85,6 +159,25 @@ int launch(const void* gx, const void* gy, const void* gz, const void* prd,
       static_cast<T*>(fx), static_cast<T*>(fy), static_cast<T*>(fz), nx, ny,
       nz, cc, static_cast<T>(lj1), static_cast<T>(lj2),
       static_cast<T>(cutsq));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tally(const void* gx, const void* gy, const void* gz,
+                 const void* prd, void* fx, void* fy, void* fz, void* tally,
+                 int nx, int ny, int nz, int cc, double lj1, double lj2,
+                 double lj3, double lj4, double offset, double cutsq,
+                 void* stream) {
+  const cell_walk::Launch L =
+      cell_walk::launch_shape<T, Geo<T>>(nx * ny * nz);
+  lj_cell_force_tally_kernel<T><<<L.grid, L.block, L.smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(gx), static_cast<const T*>(gy),
+      static_cast<const T*>(gz), static_cast<const T*>(prd),
+      static_cast<T*>(fx), static_cast<T*>(fy), static_cast<T*>(fz),
+      static_cast<T*>(tally), nx, ny, nz, cc, static_cast<T>(lj1),
+      static_cast<T>(lj2), static_cast<T>(lj3), static_cast<T>(lj4),
+      static_cast<T>(offset), static_cast<T>(cutsq));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,7 +203,32 @@ extern "C" int lj_cell_force_f64(const void* gx, const void* gy,
                         lj2, cutsq, stream);
 }
 
-// The launch the kernel makes on `ncell` cells: out[0] blocks, out[1] x
+// The tally instance: the forces and `tally`, 7 planes of nx * ny * nz *
+// cc rows (pe_i, then the virial's halves xx, yy, zz, xy, xz, yz).
+extern "C" int lj_cell_force_tally_f32(const void* gx, const void* gy,
+                                       const void* gz, const void* prd,
+                                       void* fx, void* fy, void* fz,
+                                       void* tally, int nx, int ny, int nz,
+                                       int cc, double lj1, double lj2,
+                                       double lj3, double lj4, double offset,
+                                       double cutsq, void* stream) {
+  return launch_tally<float>(gx, gy, gz, prd, fx, fy, fz, tally, nx, ny, nz,
+                             cc, lj1, lj2, lj3, lj4, offset, cutsq, stream);
+}
+
+extern "C" int lj_cell_force_tally_f64(const void* gx, const void* gy,
+                                       const void* gz, const void* prd,
+                                       void* fx, void* fy, void* fz,
+                                       void* tally, int nx, int ny, int nz,
+                                       int cc, double lj1, double lj2,
+                                       double lj3, double lj4, double offset,
+                                       double cutsq, void* stream) {
+  return launch_tally<double>(gx, gy, gz, prd, fx, fy, fz, tally, nx, ny, nz,
+                              cc, lj1, lj2, lj3, lj4, offset, cutsq, stream);
+}
+
+// The launch either kernel makes on `ncell` cells (the tally instance
+// launches as the step's): out[0] blocks, out[1] x
 // out[2] threads per block, out[3] dynamic shared memory bytes.
 extern "C" int lj_cell_force_shape(int ncell, int f64, int* out) {
   return cell_walk::report_shape<Geo<float>, Geo<double>>(ncell, f64, out);

@@ -68,6 +68,23 @@ class PairLJCut:
                            self.cutsq[1, 1]]).cpu().tolist()
         return ("lj", float(tab[0]), float(tab[1]), float(tab[2]))
 
+    def tally_key(self):
+        """Hashable scalar-coefficient key ("lj", lj1, lj2, lj3, lj4,
+        offset, cutsq) for the tally instance of the cell force kernel
+        (thermo rows, ops/pair_kernels.lj_cell_force_tally), or None when
+        the style is not a single-type style. Read from the device once per
+        style, as `kernel_key`."""
+        return self._tally_key
+
+    @functools.cached_property
+    def _tally_key(self):
+        if self.ntypes != 1:
+            return None
+        tab = torch.stack([self.lj1[1, 1], self.lj2[1, 1], self.lj3[1, 1],
+                           self.lj4[1, 1], self.offset[1, 1],
+                           self.cutsq[1, 1]]).cpu().tolist()
+        return ("lj", *(float(v) for v in tab))
+
     def pair_terms(self, r2, ti, tj, eflag: bool):
         """(fpair, evdwl) for squared distances `r2`; `ti`/`tj` are type
         tensors broadcastable to r2 (None for a single-type style)."""

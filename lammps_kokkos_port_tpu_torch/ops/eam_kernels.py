@@ -55,8 +55,9 @@ import torch
 
 from . import cuda_build
 from .eamdense import clenshaw, embedding_energy, embedding_fp
-from .pair_kernels import (check_grid, check_launch, check_pad_cutoff,
-                           stencil, tally_sums, walk_launch)
+from .pair_kernels import (VIRIAL_AXES, check_grid, check_launch,
+                           check_pad_cutoff, stencil, tally_sums,
+                           walk_launch)
 from .sortedforce import planar
 
 SOURCE = cuda_build.CSRC / "eam_cell.cu"
@@ -65,8 +66,6 @@ NAB = 28  # a and b coefficients (derivative series)
 NFP = 80  # Fp_s coefficients (derivative series of the DEG_EMBED fit)
 NF = 81   # F coefficients (the DEG_EMBED fit; tally only)
 NPHI = 29  # phi coefficients (tally only)
-# the virial's components (xx, yy, zz, xy, xz, yz) as pairs of axes
-VIRIAL_AXES = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
 
 def rho_tab(tabs: dict, cutsq: float) -> tuple:

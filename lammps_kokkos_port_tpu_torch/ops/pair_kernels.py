@@ -14,18 +14,23 @@ fallback from a CUDA tensor to the plain version: the wrapper launches the
 kernel or raises.
 
 `compute_sorted` is lj/cut's force path on the sorted layout (the
-style's "sorted" mode, models/pair_lj): the kernel on every step, the
-plain grid path of ops/gridforce on thermo rows. `tally_sums` reduces the
-per-row energy and virial planes of the EAM and Tersoff tally kernels.
+style's "sorted" mode, models/pair_lj): the kernel on every step, and on
+thermo rows its tally instance `lj_cell_force_tally`
+(`lj_cell_force_tally_kernel`, the same walk with the energy and the
+virial summed per row; its plain twin `lj_cell_force_tally_reference`),
+counted on `pair.lj_tally_rows` (utils/trace). `tally_sums` reduces the
+per-row energy and virial planes of the LJ, EAM and Tersoff tally
+kernels.
 
 Each pair is formed in the frame of the Newton-half K1/K2 (`stencil`,
 frame "half"): across a wrapped face both rows of a pair at the cutoff
 take K1's one decision (tests/test_torch_cutoff_frame.py).
 
-The kernel skips pad rows (their position sentinel, ops/sortedforce.py)
+The kernels skip pad rows (their position sentinel, ops/sortedforce.py)
 instead of walking them, which gives the plain version's result only while
 no pad lies within the cutoff of another row: on a CUDA tensor
-`lj_cell_force` raises on a cutoff of PAD_STEP or more
+`lj_cell_force` and `lj_cell_force_tally` raise on a cutoff of PAD_STEP or
+more
 (`check_pad_cutoff`); the kernel checks the box's part of the argument
 itself (csrc/sorted_grid.cuh).
 """
@@ -37,7 +42,8 @@ import functools
 
 import torch
 
-from . import cuda_build, gridforce
+from ..utils import trace
+from . import cuda_build
 from .sortedforce import PAD_STEP, planar
 
 SOURCE = cuda_build.CSRC / "lj_cell_force.cu"
@@ -47,6 +53,9 @@ MAX_CELL_CAP = 1024
 
 _OFFSETS = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
             for oz in (-1, 0, 1)]
+# the virial's components (xx, yy, zz, xy, xz, yz) as pairs of axes, the
+# order of the tally kernels' planes
+VIRIAL_AXES = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 
 
 def check_grid(ncells, channels, prd, min_cells: int = 3):
@@ -152,12 +161,14 @@ def tally_sums(tally, valid):
         dim=1, dtype=torch.float64)
 
 
-def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
-    """Plain PyTorch lj/cut force-only pass over the cell-major grid (the
-    27-cell `stencil` walk, each pair in K1's frame). Returns [3, ncells,
-    cc] (fx, fy, fz stacked on the leading axis)."""
-    _, lj1, lj2, cutsq = key
+def _lj_sweep(lj1, lj2, cutsq, ncells, gx, gy, gz, prd, energy=None):
+    """The plain lj/cut walk (the 27-cell `stencil`, each pair in K1's
+    frame); with `energy` = (lj3, lj4, offset) also each row's sums of
+    evdwl and of fpair dx_a dx_b (VIRIAL_AXES), unhalved. Returns (f [3,
+    ncells, cc], the 7 sums [7, ncells, cc] or None)."""
     out = [torch.zeros_like(a) for a in (gx, gy, gz)]
+    sums = None if energy is None else [torch.zeros_like(gx)
+                                        for _ in range(7)]
     for d, r2, pair_ok, _ in stencil(ncells, gx, gy, gz, prd, frame="half"):
         valid = r2 < cutsq
         if pair_ok is not None:
@@ -165,10 +176,34 @@ def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
         r2inv = 1.0 / torch.where(valid, r2, 1.0)
         r6inv = r2inv * r2inv * r2inv
         fpair = torch.where(valid, r6inv * (lj1 * r6inv - lj2) * r2inv, 0.0)
-        for dim in range(3):
-            out[dim] += torch.sum(d[dim] * fpair, dim=-1).reshape(
-                out[dim].shape)
-    return torch.stack(out)
+        terms = [d[dim] * fpair for dim in range(3)]
+        if sums is not None:
+            lj3, lj4, offset = energy
+            terms.append(torch.where(
+                valid, r6inv * (lj3 * r6inv - lj4) - offset, 0.0))
+            terms.extend(d[i] * fpair * d[j] for i, j in VIRIAL_AXES)
+        for acc, term in zip(out + (sums or []), terms):
+            acc += torch.sum(term, dim=-1).reshape(acc.shape)
+    return torch.stack(out), None if sums is None else torch.stack(sums)
+
+
+def lj_cell_force_reference(key, ncells, gx, gy, gz, prd):
+    """Plain PyTorch lj/cut force-only pass over the cell-major grid (the
+    27-cell `stencil` walk, each pair in K1's frame). Returns [3, ncells,
+    cc] (fx, fy, fz stacked on the leading axis)."""
+    _, lj1, lj2, cutsq = key
+    return _lj_sweep(lj1, lj2, cutsq, ncells, gx, gy, gz, prd)[0]
+
+
+def lj_cell_force_tally_reference(key, ncells, gx, gy, gz, prd):
+    """The tally instance's plain twin: `lj_cell_force_reference`'s walk
+    with the energy and the virial. Returns (f [3, ncells, cc], tally [7,
+    ncells, cc]): tally[0] = 1/2 sum_j evdwl, tally[1:] = 1/2 sum_j fpair
+    dx_a dx_b in VIRIAL_AXES order."""
+    _, lj1, lj2, lj3, lj4, offset, cutsq = key
+    f, sums = _lj_sweep(lj1, lj2, cutsq, ncells, gx, gy, gz, prd,
+                        (lj3, lj4, offset))
+    return f, 0.5 * sums
 
 
 def check_pad_cutoff(cutsq: float) -> None:
@@ -216,9 +251,17 @@ def walk_launch(lib: ctypes.CDLL, stem: str, ncell: int, dtype) -> dict:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """Build (once per source and flag set) and load the kernel library."""
-    return bind_walk_library(cuda_build.load(SOURCE), "lj_cell_force", 7, 4,
-                             3)
+    """Build (once per source and flag set) and load the kernel library:
+    the step's entries and the tally instance's (one pointer and three
+    doubles more: the tally planes, lj3, lj4 and offset)."""
+    lib = bind_walk_library(cuda_build.load(SOURCE), "lj_cell_force", 7, 4,
+                            3)
+    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for name in ("lj_cell_force_tally_f32", "lj_cell_force_tally_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 8 + [i32] * 4 + [f64] * 6 + [ptr]
+        fn.restype = i32
+    return lib
 
 
 def launch_shape(ncells, dtype) -> dict:
@@ -226,6 +269,33 @@ def launch_shape(ncells, dtype) -> dict:
     (builds the library)."""
     nx, ny, nz = ncells
     return walk_launch(_library(), "lj_cell_force", nx * ny * nz, dtype)
+
+
+def _launch(counted, key, ncells, gx, gy, gz, prd, tally: bool):
+    """One launch of the kernel `counted` names (`lj_cell_force` or its
+    tally instance, `tally`): its C entry for the grid's dtype with the
+    key's coefficients, in the entry's order. Returns (f [3, ncells, cc],
+    the 7 planes [7, ncells, cc] or None) and adds one to
+    `counted.launches`."""
+    check_launch((gx, gy, gz), prd)
+    check_pad_cutoff(key[-1])
+    ncell, cc = gx.shape
+    out = torch.empty((3, ncell, cc), dtype=gx.dtype, device=gx.device)
+    planes = (torch.empty((7, ncell, cc), dtype=gx.dtype, device=gx.device)
+              if tally else None)
+    name = counted.__name__
+    fn = getattr(_library(), f"{name}_f32" if gx.dtype == torch.float32
+                 else f"{name}_f64")
+    ptrs = [t.data_ptr() for t in (gx, gy, gz, prd, *out)]
+    if tally:
+        ptrs.append(planes.data_ptr())
+    with torch.cuda.device(gx.device):
+        stream = torch.cuda.current_stream(gx.device).cuda_stream
+        err = fn(*ptrs, *ncells, cc, *key[1:], stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    counted.launches += 1
+    return out, planes
 
 
 def lj_cell_force(key, ncells, gx, gy, gz, prd):
@@ -242,50 +312,54 @@ def lj_cell_force(key, ncells, gx, gy, gz, prd):
     check_grid(ncells, (gx, gy, gz), prd)
     if gx.device.type == "cpu":
         return lj_cell_force_reference(key, ncells, gx, gy, gz, prd)
-    check_launch((gx, gy, gz), prd)
-    _, lj1, lj2, cutsq = key
-    check_pad_cutoff(cutsq)
-    ncell, cc = gx.shape
-    out = torch.empty((3, ncell, cc), dtype=gx.dtype, device=gx.device)
-    fn = (_library().lj_cell_force_f32 if gx.dtype == torch.float32
-          else _library().lj_cell_force_f64)
-    with torch.cuda.device(gx.device):
-        stream = torch.cuda.current_stream(gx.device).cuda_stream
-        err = fn(gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), prd.data_ptr(),
-                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                 *ncells, cc, lj1, lj2, cutsq, stream)
-    if err != 0:
-        raise RuntimeError(f"lj_cell_force launch failed: CUDA error {err}")
-    lj_cell_force.launches += 1
-    return out
+    return _launch(lj_cell_force, key, ncells, gx, gy, gz, prd, False)[0]
+
+
+def lj_cell_force_tally(key, ncells, gx, gy, gz, prd):
+    """lj/cut forces and each row's energy and virial (thermo rows).
+
+    key: ("lj", lj1, lj2, lj3, lj4, offset, cutsq) from
+    PairLJCut.tally_key(); the rest as `lj_cell_force`. Returns (f [3,
+    ncells, cc], tally [7, ncells, cc]): tally[0] = 1/2 sum_j evdwl,
+    tally[1:] = 1/2 sum_j fpair dx_a dx_b in VIRIAL_AXES order (halved:
+    the 27-cell stencil sees each pair from both rows). On a CUDA tensor it
+    launches `lj_cell_force_tally_kernel`, adding one to
+    `lj_cell_force_tally.launches`.
+    """
+    if key[0] != "lj":
+        raise NotImplementedError(f"no cell kernel for style {key[0]!r}")
+    check_grid(ncells, (gx, gy, gz), prd)
+    if gx.device.type == "cpu":
+        return lj_cell_force_tally_reference(key, ncells, gx, gy, gz, prd)
+    return _launch(lj_cell_force_tally, key, ncells, gx, gy, gz, prd, True)
 
 
 lj_cell_force.launches = 0
+lj_cell_force_tally.launches = 0
 
 
 def compute_sorted(style, state, cl, eflag: bool, vflag: bool):
     """lj/cut's (f, pe, virial) on a SortedCells state, one atom type (the
     style's "sorted" path, models/pair_lj). The force-only pass (every MD
     step) goes through `lj_cell_force`; energy/virial passes (thermo rows)
-    take the plain PyTorch grid path (ops/gridforce) on the identity
-    buckets the sorted layout implies, as the JAX package took its XLA
-    path there. pe and virial are None unless asked for."""
+    through its tally instance `lj_cell_force_tally`, counted on
+    `pair.lj_tally_rows`, with pe and virial as ops/gridforce defines them
+    (pe = sum over pairs of evdwl, virial = sum over pairs of fpair dx_a
+    dx_b, each pair once): the valid rows' planes summed in float64
+    (`tally_sums`), then taken to the state's dtype. pe and virial are
+    None unless asked for."""
     p = cl.params
-    cap = state.capacity
-    ntot = p.total_cells
-    cc = p.cell_cap
+    g = planar(state.x).reshape(3, p.total_cells, p.cell_cap)
+    prd = state.box.prd.to(state.dtype)
 
     if not eflag and not vflag:
-        g = planar(state.x).reshape(3, ntot, cc)
         f = lj_cell_force(style.kernel_key(), p.ncells, g[0], g[1], g[2],
-                          state.box.prd.to(state.dtype))
-        return f.reshape(3, cap).t().contiguous(), None, None
+                          prd)
+        return f.reshape(3, state.capacity).t().contiguous(), None, None
 
-    rows = torch.arange(cap, dtype=torch.int32,
-                        device=state.device).reshape(ntot, cc)
-    buckets = torch.where(state.mask.reshape(ntot, cc) != 0, rows, cap)
-    buckets = torch.cat(
-        [buckets, torch.full((1, cc), cap, dtype=torch.int32,
-                             device=state.device)], dim=0)
-    gc = gridforce.GridCells(buckets=buckets, params=p)
-    return gridforce.compute(style, state, gc, eflag, vflag)
+    trace.count("pair.lj_tally_rows")
+    f, tally = lj_cell_force_tally(style.tally_key(), p.ncells, g[0], g[1],
+                                   g[2], prd)
+    sums = tally_sums(tally, state.valid_mask).to(state.dtype)
+    return (f.reshape(3, state.capacity).t().contiguous(),
+            sums[0] if eflag else None, sums[1:] if vflag else None)

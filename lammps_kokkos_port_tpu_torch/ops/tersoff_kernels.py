@@ -46,12 +46,10 @@ import torch
 
 from ..utils import trace
 from . import cuda_build
-from .pair_kernels import stencil, tally_sums
+from .pair_kernels import VIRIAL_AXES, stencil, tally_sums
 
 SOURCE = cuda_build.CSRC / "tersoff_cell.cu"
 NPAR = 14  # models/pair_tersoff.FIELDS
-# the virial's components (xx, yy, zz, xy, xz, yz) as pairs of axes
-VIRIAL_AXES = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
 # LAMMPS's clip of the exponent of exp((lam3 (r_ij - r_ik))^m)
 EX_CLIP = 69.0776
 

@@ -14,16 +14,33 @@ sums differs. The planted pairs at r2 = cutsq and one ulp either side of it
 show the decisions are the same bit for bit, and those planted across each
 wrapped face (prof/planted.wrapped_pairs) that both rows of a pair take
 the Newton-half K1's one decision (ROADMAP F12).
+
+The tally instance (thermo rows, `lj_cell_force_tally`) is held against
+its twin on the same inputs: forces and pe plane with the tolerances
+above; the six virial planes in f64 likewise; the sums over the valid rows
+(float64 on both sides) pe rtol 1e-12 in f64, 1e-5 in f32, the virial
+rtol 1e-12 with atol 1e-12*max|virial| in f64. In f32 a row's virial is a
+sum of pair terms that cancel, so f32's own rounding of it is far above
+1e-4 of its largest value: there the kernel's virial planes and sums are
+held to an f64 evaluation of the same inputs within twice the f32 twin's
+own deviation from it, plus 1e-4 (planes) or 1e-5 (sums) of the largest
+value, the rule tests/test_torch_eam_cuda.py holds EAM's f32 virial to.
+The tally launch's forces equal the step kernel's to a few ulps (the same
+walk; only the compiler's scheduling differs), and its cutoff decisions
+are the step's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lammps_kokkos_port_tpu_torch.ops import pair_kernels
+from lammps_kokkos_port_tpu_torch.ops import gridforce, pair_kernels
 from lammps_kokkos_port_tpu_torch.ops.pair_kernels import (
     lj_cell_force,
     lj_cell_force_reference,
+    lj_cell_force_tally,
+    lj_cell_force_tally_reference,
+    tally_sums,
 )
 from lammps_kokkos_port_tpu_torch.ops.sortedforce import (
     PAD_POS,
@@ -32,10 +49,15 @@ from lammps_kokkos_port_tpu_torch.ops.sortedforce import (
 )
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_sim
 from lammps_kokkos_port_tpu_torch.prof import planted
+from lammps_kokkos_port_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
 KEY = ("lj", 48.0, 24.0, 6.25)  # lj/cut 2.5, epsilon = sigma = 1
+# its tally keys: lj3, lj4 and no offset; and the offset of `pair_modify
+# shift yes`, which takes a pair at the cutoff to an energy of about 0
+TALLY_KEY = ("lj", 48.0, 24.0, 4.0, 4.0, 0.0, 6.25)
+SHIFTED_KEY = TALLY_KEY[:5] + (4.0 * (2.5 ** -12 - 2.5 ** -6), 6.25)
 
 
 @pytest.fixture
@@ -242,3 +264,178 @@ def test_cutoff_frame_across_wrapped_faces(cuda, dtype, case):
     assert planted.taken(ref, rows) == want
     assert planted.taken(f, rows) == want
     assert int(f.count_nonzero()) == int(ref.count_nonzero())
+
+
+def _as_accurate(got, twin, exact, rel):
+    """`got` within twice the twin's deviation from `exact` (the same
+    values evaluated in f64), plus `rel` of the largest |exact|."""
+    allowed = (2 * (twin.double() - exact).abs().max()
+               + rel * exact.abs().max()).item()
+    worst = (got.double() - exact).abs().max().item()
+    assert worst <= allowed, (worst, allowed)
+
+
+def _tally_and_check(tkey, ncells, g, prd, dtype, valid=None):
+    """One tally launch (and no step launch) against its twin: forces and
+    the seven planes row by row, pe and virial summed over the `valid` rows
+    (every row where None); its forces against the step kernel's on the
+    same inputs. Returns (f, tally, the twin's f, the twin's tally)."""
+    before = (lj_cell_force.launches, lj_cell_force_tally.launches)
+    f, tally = lj_cell_force_tally(tkey, ncells, g[0], g[1], g[2], prd)
+    torch.cuda.synchronize()
+    assert (lj_cell_force.launches, lj_cell_force_tally.launches) == (
+        before[0], before[1] + 1)
+    f_ref, tally_ref = lj_cell_force_tally_reference(tkey, ncells, g[0],
+                                                     g[1], g[2], prd)
+    _assert_matches(f, f_ref, dtype)
+    _assert_matches(tally[0], tally_ref[0], dtype)
+    if valid is None:
+        valid = torch.ones(g[0].numel(), dtype=torch.bool, device=g.device)
+    sums, ref = tally_sums(tally, valid), tally_sums(tally_ref, valid)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(sums[0], ref[0], rtol=tol,
+                               atol=tol * ref[0].abs().item())
+    vmax = ref[1:].abs().max().clamp_min(1e-300).item()
+    if dtype == torch.float64:
+        _assert_matches(tally[1:], tally_ref[1:], dtype)
+        torch.testing.assert_close(sums[1:], ref[1:], rtol=tol,
+                                   atol=tol * vmax)
+    else:
+        exact = lj_cell_force_tally_reference(
+            tkey, ncells, *(a.double() for a in (g[0], g[1], g[2], prd)))[1]
+        _as_accurate(tally[1:], tally_ref[1:], exact[1:], 1e-4)
+        _as_accurate(sums[1:], ref[1:], tally_sums(exact, valid)[1:], tol)
+    step = lj_cell_force(tkey[:3] + tkey[6:], ncells, g[0], g[1], g[2], prd)
+    torch.cuda.synchronize()
+    ulps = 8 * torch.finfo(dtype).eps
+    torch.testing.assert_close(f, step, rtol=ulps,
+                               atol=ulps * step.abs().max().item())
+    return f, tally, f_ref, tally_ref
+
+
+@pytest.mark.parametrize("cells", [6, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tally_matches_plain(cuda, dtype, cells):
+    """The tally instance on the jittered melt: 6 cells, and 20, the lj-melt
+    32k deck's grid; its own key (offset 0) and the shifted one."""
+    sim = lj_melt_sim(cells=cells, t_init=1.44, dtype=dtype, device=cuda)
+    sim.setup()
+    st, p = sim.state, sim.nl.params
+    gen = torch.Generator(device=cuda).manual_seed(cells)
+    jitter = (torch.rand(st.x.shape, generator=gen, device=cuda,
+                         dtype=dtype) - 0.5) * 0.1
+    x = torch.where(st.valid_mask[:, None], st.x + jitter, st.x)
+    g = x.t().contiguous().reshape(3, p.total_cells, p.cell_cap)
+    assert sim.pair_style.tally_key()[3:6] == (4.0, 4.0, 0.0)
+    for tkey in (sim.pair_style.tally_key(), SHIFTED_KEY):
+        _, tally, _, _ = _tally_and_check(tkey, p.ncells, g, st.box.prd,
+                                          dtype, st.valid_mask)
+        assert tally[0].abs().max().item() > 1.0
+        assert tally[1:].abs().max().item() > 1.0
+
+
+def _interleaved(cuda, dtype, cc, ncells):
+    ncell = ncells[0] * ncells[1] * ncells[2]
+    counts = [(c * 7) % (cc // 2) + 4 for c in range(ncell)]
+    if cc == 64:
+        counts[5] = 40
+    return _lattice_grid(ncells, cc, counts, 11, dtype, cuda)
+
+
+@pytest.mark.parametrize("grid,dtype", [
+    ("interleaved32", torch.float32), ("interleaved32", torch.float64),
+    ("interleaved64", torch.float32), ("interleaved64", torch.float64),
+    ("huge_box", torch.float64), ("corner_pads", torch.float64)])
+def test_tally_on_padded_grids(cuda, grid, dtype):
+    """The tally instance on the step kernel's hard inputs: pads before
+    live rows (cc 32, and cc 64 with a cell of 40 atoms in two row passes),
+    and where pads could meet (every row walked): there the pads' planes
+    are the twin's, and the sums over the valid rows leave them out."""
+    if grid.startswith("interleaved"):
+        cc = int(grid[-2:])
+        ncells = (3, 4, 5) if cc == 32 else (3, 3, 4)
+        g, prd, valid = _interleaved(cuda, dtype, cc, ncells)
+        valid = valid.reshape(-1)
+    else:
+        g, prd = (_huge_box if grid == "huge_box" else _corner_pads)(cuda)
+        ncells, valid = (3, 3, 3), None
+    f, tally, _, tally_ref = _tally_and_check(SHIFTED_KEY, ncells, g, prd,
+                                              dtype, valid)
+    if valid is not None:
+        pads = ~valid
+        assert tally_ref[0].reshape(-1)[valid].abs().max().item() > 0.1
+        assert torch.equal(tally.reshape(7, -1)[:, pads],
+                           torch.zeros_like(tally.reshape(7, -1)[:, pads]))
+    if grid == "corner_pads":
+        none = torch.zeros(27, dtype=torch.bool, device=cuda)
+        assert tally[0].reshape(-1)[[0, 26]].abs().min().item() > 0
+        assert bool((tally_sums(tally, none) == 0).all())
+
+
+@pytest.mark.parametrize("case", planted.CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tally_cutoff_decisions(cuda, dtype, case):
+    """Pairs planted at r2 = cutsq and one ulp either side, and across each
+    periodic face at K1's r2 = cutsq and one ulp either side: the tally
+    instance takes each row's decision as the step kernel and the twin
+    take it (K1's), in its forces and in its energy plane (unshifted: a
+    pair at the cutoff keeps an energy of about -0.0163)."""
+    ncells, cc = (3, 3, 3), 32
+    prd = torch.full((3,), 10.2, dtype=dtype)
+    g, _, rows, dec = planted.wrapped_pairs(ncells, cc, prd, KEY[3], dtype,
+                                            case, device=cuda)
+    f, tally, f_ref, _ = _tally_and_check(TALLY_KEY, ncells, g,
+                                          prd.to(cuda), dtype)
+    want = {axis: d["half"] for axis, d in dec.items()}
+    assert planted.taken(f_ref, rows) == want
+    assert planted.taken(f, rows) == want
+    pe = tally[0].reshape(-1)
+    assert {axis: tuple(bool(pe[r] != 0) for r in pair)
+            for axis, pair in enumerate(rows)} == want
+    if case != "at":
+        return
+    # the in-box pairs at cutsq and one ulp either side (as
+    # test_cutoff_boundary_pairs plants them): only the one below counts
+    pos = planted_pairs(dtype, boundary_targets(dtype))
+    side = 3.0
+    gb = np.repeat(_pad_x(72 * cc, torch.float64, "cpu").numpy()[None], 3,
+                   axis=0).reshape(3, 72, cc)
+    for i, p in enumerate(pos):
+        cell = (p // side).astype(int)
+        gb[:, (cell[0] * 3 + cell[1]) * 3 + cell[2], i] = p
+    gb = torch.from_numpy(gb).to(dtype).to(cuda)
+    box = torch.tensor([24.0, 9.0, 9.0], dtype=dtype, device=cuda)
+    f, tally, _, _ = _tally_and_check(TALLY_KEY, (8, 3, 3), gb, box, dtype)
+    assert int((tally[0].reshape(-1) != 0).sum()) == 2
+    assert int((f.reshape(3, -1).abs().sum(0) > 0).sum()) == 2
+
+
+def test_thermo_row_launches_the_tally_once(cuda, monkeypatch):
+    """A thermo row on the card: one tally launch, no launch of the step
+    kernel and no grid-roll pass; the row against the same row on the CPU
+    (the twin)."""
+    sim = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64, device=cuda)
+    sim.setup()
+    cpu = lj_melt_sim(cells=6, t_init=1.44, dtype=torch.float64,
+                      device="cpu")
+    cpu.setup()
+
+    def no_roll(*args, **kwargs):
+        raise AssertionError("grid-roll pass on the sorted layout")
+
+    monkeypatch.setattr(gridforce, "compute", no_roll)
+    before = (lj_cell_force.launches, lj_cell_force_tally.launches)
+    trace.reset()
+    trace.enable()
+    try:
+        row = sim.thermo()
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert (lj_cell_force.launches, lj_cell_force_tally.launches) == (
+        before[0], before[1] + 1)
+    assert counters == {"pair.lj_tally_rows": 1}
+    ref = cpu.thermo()
+    for k in ("pe", "press", "pxx", "pxy"):
+        assert row[k] == pytest.approx(ref[k], rel=1e-10, abs=1e-10), k
