@@ -1,0 +1,10 @@
+"""Percent of its roofline one call of snap_ui reaches in the traced runs
+(roofline/kernels/snap_ui.json; the end state's counts, pairs within the
+overlay's cutoff and atoms)."""
+
+from bench_port.roofline import peaks
+
+
+def read(ctx, name):
+    return peaks.kernel_share("snap_ui", ctx["trace"], ctx["counts"],
+                              ctx["dtype"])

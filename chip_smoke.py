@@ -129,7 +129,22 @@ checks them on the card:
      for bit); each kernel's device time on a rebuild step and on one
      that is not, the plain versions' times and the bounds
      (prof/rebin.py); the launches of each over the 1M Tersoff deck's
-     `run 100`, one a step.
+     `run 100`, one a step;
+ 19. the SNAP and ZBL kernels (csrc/snap.cu) against their plain twins on
+     the sorted state of the benchmark's SNAP W deck
+     (bench_port/configs/snap-w.in, seeded coefficients) at 128,000 atoms
+     (grid 21^3, cc 24), f32 and f64, positions jittered by a seeded
+     +-0.1 A: the short list at the overlay's 4.8 A entry for entry, U, Y
+     and the forces (each kernel fed its twin's inputs; the per-pair twins
+     in blocks of rows), the tally instances' Y and forces against the
+     step instances' and their energy and virial sums against the twins';
+     each kernel's device time (CUDA events around calls queued back to
+     back, `queued_ms`), its twin's time and its bound
+     (bench_port/roofline/kernels). Then the deck's `run 100` at thermo 10
+     in float64, the main path of the cell snap-w-fp64.128k: one short
+     list and one ui a force pass, yi, deidrj and zbl_pair once a step,
+     each tally instance once a thermo row, drift, the slope-timed step
+     rate and a torch.profiler split.
 
 The `[rank]` lines order the kernels for redesign: the decks' kernels by
 launches per step times device time above the bound at each deck's size,
@@ -293,6 +308,44 @@ TERSOFF_THERMO = 10
 # |etotal drift| per atom over TERSOFF_STEPS, eV: a sanity bound, as
 # EAM_DRIFT_BOUND
 TERSOFF_DRIFT_BOUND = 0.01
+SNAP_SOURCE = "lammps_kokkos_port_tpu_torch/csrc/snap.cu"
+# No pallas_call: the JAX package forms SNAP's U sums in XLA and takes the
+# forces (and, for rows, the virial) as jax.grad of one energy; ZBL is a
+# pair term of its neighbour-matrix engine
+SNAP_REPLACES = {
+    "snap_ui": "lammps_kokkos_port_tpu/models/pair_snap.py:308",
+    "snap_yi": "lammps_kokkos_port_tpu/models/pair_snap.py:438",
+    "snap_yi_tally": "lammps_kokkos_port_tpu/models/pair_snap.py:449",
+    "snap_deidrj": "lammps_kokkos_port_tpu/models/pair_snap.py:438",
+    "snap_deidrj_tally": "lammps_kokkos_port_tpu/models/pair_snap.py:449",
+    "zbl_pair": "lammps_kokkos_port_tpu/models/pair_zbl.py:87",
+    "zbl_pair_tally": "lammps_kokkos_port_tpu/models/pair_zbl.py:87",
+}
+SNAP_KERNELS = tuple(SNAP_REPLACES)
+# SNAP and ZBL, as bench_port/roofline/kernels/{snap_*,zbl_pair}.json count
+# them (the derivations are there; read by peaks.kernel_work). The tally
+# instances add: snap_yi_tally per valid row Re[conj(Y) U] over the 155
+# half entries (2 products and 2 sums each), the third and E_0 (2), and one
+# energy out; snap_deidrj_tally per ordered pair the six virial products
+# -d_a dE/dr_b with their sums (2 each), and six planes out; zbl_pair_tally
+# per ordered pair the energy (the screening sum over r 2, the switch 4,
+# the halving and its sum 2) and six halved virial products with their
+# sums (4 each), and seven planes out.
+SNAP_YI_TALLY_ROW_OPS = 155 * 4 + 2
+SNAP_DEIDRJ_TALLY_PAIR_OPS = 2 * 6 * 2
+ZBL_TALLY_PAIR_OPS = 2 * (8 + 6 * 4)
+SNAP_TALLY_PLANES = {"snap_yi_tally": 1, "snap_deidrj_tally": 6,
+                     "zbl_pair_tally": 7}
+# the deck's run and thermo cadence (bench_port/configs/snap-w.in: run 100,
+# thermo 10), its size (-var x 10: 128,000 atoms) and the rows a plain twin
+# takes at once (each block's pairs' U and dU/dr fit in a few GB)
+SNAP_STEPS = 100
+SNAP_THERMO = 10
+SNAP_SIZE = "128k"
+SNAP_BLOCK_ROWS = 32768
+# |etotal drift| per atom over SNAP_STEPS, eV: a sanity bound, as
+# EAM_DRIFT_BOUND
+SNAP_DRIFT_BOUND = 0.01
 # the kernels redesigned for Hopper: on the shared candidate walk
 # (csrc/cell_walk.cuh), and the P9 and P4 pair ablations with more rows in
 # flight (lj_ablate, whose line's times are pair_only's, and
@@ -2504,6 +2557,331 @@ def phase_rebin(dev) -> tuple[list, list]:
     return entries, terms
 
 
+def event_ms(fn) -> tuple:
+    """(fn(), its CUDA-event time in ms): one call, for a plain twin whose
+    result is also compared."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def queued_ms(fn, calls: int = 10, rounds: int = 3) -> tuple:
+    """(device ms a call, host ms a call) of fn: `calls` calls queued back
+    to back between one CUDA-event pair, the median of `rounds`. The host
+    issues a call in less than the card takes to run it (the host ms says
+    so), so the card never waits and the pair holds device time alone:
+    phase 19's kernels run 0.04-30 ms a call, and torch.profiler's traces
+    of them lose records (a trace of five `snap_ui` calls has held three,
+    eight times in a row; F10)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / calls)
+    return statistics.median(dev), statistics.median(host)
+
+
+def by_blocks(mask, nshort, fn, block: int | None = None):
+    """fn(mask_b, nshort_b) summed over blocks of `block` rows, each block's
+    rows keeping their mask and list and the others none: a plain twin of
+    the whole state in a few GB of the card at a time. fn returns a tensor
+    or a tuple of them."""
+    import torch
+
+    rows = mask.shape[0]
+    block = block or SNAP_BLOCK_ROWS
+    slot = torch.arange(rows, device=mask.device)
+    total = None
+    for s in range(0, rows, block):
+        keep = (slot >= s) & (slot < s + block)
+        out = fn(torch.where(keep, mask, 0),
+                 torch.where(keep, nshort, 0))
+        out = out if isinstance(out, tuple) else (out,)
+        total = out if total is None else tuple(
+            a + b for a, b in zip(total, out))
+    return total if len(total) > 1 else total[0]
+
+
+def snap_close(label: str, got, ref, dtype, rel64: float, rel32: float):
+    """got against ref as tests/test_torch_snap_cuda.py holds them: f64
+    rtol rel64 with atol rel64 of the largest |ref|, f32 atol rel32 of it;
+    the max abs error."""
+    import torch
+
+    amax = ref.abs().max().item()
+    if dtype == torch.float64:
+        tol = rel64 * amax + rel64 * ref.abs()
+    else:
+        tol = torch.full_like(ref, rel32 * amax)
+    err = (got - ref).abs()
+    bad = int((err > tol).sum())
+    if bad or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{label}: {bad} of {ref.numel()} values out of "
+                           f"tolerance (max abs err {err.max().item():.3e}, "
+                           f"largest |ref| {amax:.3e})")
+    return err.max().item()
+
+
+def snap_kernels_vs_plain(sim, dtype, label: str) -> dict:
+    """Phase 19 on one dtype: the deck's sorted state, positions jittered by
+    a seeded +-0.1 A and cast to `dtype`, its short list at the overlay's
+    cutoff (exact against the twin's), then each SNAP and ZBL kernel
+    against its plain twin on the same CUDA tensors, each fed the twin's own
+    inputs (U for yi, Y for deidrj) so that each is held alone; the twins of
+    the per-pair passes run in blocks of SNAP_BLOCK_ROWS rows. Tolerances
+    and their reasons: tests/test_torch_snap_cuda.py (U f64 1e-12, f32 1e-5
+    of the largest |U|; Y 1e-11, 1e-4; forces 1e-10, 1e-3; the tally
+    instances' Y and forces against the step instances' 1e-12, 1e-5; the
+    energy summed over the valid rows rel 1e-11, 1e-5; the virial sums
+    1e-10, 1e-4 of the largest; ZBL 1e-12, 1e-5). Returns {kernel name:
+    numbers} for the kernel line, with each kernel's device time
+    (`queued_ms`), its twin's time (one call, CUDA events) and its
+    bound."""
+    import torch
+
+    from bench_port.roofline import peaks
+    from lammps_kokkos_port_tpu_torch.ops import snap_kernels as sk
+    from lammps_kokkos_port_tpu_torch.ops import tersoff_kernels as tk
+    from lammps_kokkos_port_tpu_torch.ops.pair_kernels import tally_sums
+    from lammps_kokkos_port_tpu_torch.prof.redesign import jittered
+
+    st, p = sim.state, sim.nl.params
+    snap, zbl = sorted(sim.pair_style.styles, key=lambda s: s.short_rank)
+    x = jittered(sim, dtype, 0.1).contiguous()
+    mask, prd, valid = st.mask, st.box.prd.to(dtype), st.valid_mask
+    S, cut = sim.nl.short_cap, sim.pair_style.max_cutoff()
+    overflow = torch.zeros((), dtype=torch.bool, device=x.device)
+    need = torch.zeros((), dtype=torch.int32, device=x.device)
+    short, nshort = tk.tersoff_short(cut ** 2, p.ncells, x, mask, prd, S,
+                                     overflow, need)
+    r_short, r_n, counts = tk.tersoff_short_reference(cut ** 2, p.ncells, x,
+                                                      mask, prd, S)
+    used = torch.arange(S, device=x.device)[None, :] < r_n[:, None]
+    if not (torch.equal(nshort, r_n) and torch.equal(short[used],
+                                                     r_short[used])):
+        raise RuntimeError(f"{label} tersoff_short at {cut} A: another list "
+                           "than the twin's")
+    if bool(overflow) or int(need) != 0 or int(counts.max()) > S:
+        raise RuntimeError(f"{label} tersoff_short: a list longer than {S}")
+    del r_short, r_n, counts, used
+    par, zpar = snap.kernel_params(), zbl.kernel_params()
+    table = sk._device_table(snap, dtype, x.device)
+    live = torch.arange(S, device=x.device)[None, :] < nshort[:, None]
+    d = x[torch.where(live, short, 0).long()] - x[:, None, :]
+    d = d - prd * torch.round(d / prd)
+    rsq = (d * d).sum(-1)
+    pairs = {"snap": int(((rsq < par[1]) & live).sum()) // 2,
+             "zbl": int(((rsq < zpar[1]) & live).sum()) // 2}
+    del live, d, rsq
+    atoms = int(valid.sum())
+    rows = x.shape[0]
+
+    u = sk.snap_ui(par, x, mask, short, nshort, prd)
+    r_u, plain_ui = event_ms(lambda: by_blocks(
+        mask, nshort, lambda m, n: sk.snap_ui_reference(par, x, m, short, n,
+                                                        prd)))
+    errs = {"snap_ui": snap_close(f"{label} snap_ui", u[valid], r_u[valid],
+                                  dtype, 1e-12, 1e-5)}
+    del u
+    y = sk.snap_yi(par, table, mask, r_u)
+    (r_y, r_e), plain_yi = event_ms(lambda: sk.snap_yi_reference(
+        par, snap.table, mask, r_u, tally=True))
+    errs["snap_yi"] = snap_close(f"{label} snap_yi", y[valid], r_y[valid],
+                                 dtype, 1e-11, 1e-4)
+    e = torch.zeros(rows, dtype=dtype, device=x.device)
+    y_t = sk.snap_yi_tally(par, table, mask, r_u, e)
+    errs["snap_yi_tally"] = snap_close(f"{label} snap_yi_tally vs snap_yi",
+                                       y_t[valid], y[valid], dtype, 1e-12,
+                                       1e-5)
+    pe, r_pe = e[valid].double().sum().item(), r_e[valid].double().sum().item()
+    pe_gap = abs(pe / r_pe - 1)
+    if pe_gap > (1e-11 if dtype == torch.float64 else 1e-5):
+        raise RuntimeError(f"{label} snap_yi_tally energy {pe:.17g} against "
+                           f"the twin's {r_pe:.17g}: rel {pe_gap:.3e}")
+    del y, y_t, e, r_e
+
+    f = sk.snap_deidrj(par, x, mask, short, nshort, prd, r_y)
+    (r_f, r_v), plain_de = event_ms(lambda: by_blocks(
+        mask, nshort, lambda m, n: sk.snap_deidrj_reference(
+            par, x, m, short, n, prd, r_y, tally=True)))
+    errs["snap_deidrj"] = snap_close(f"{label} snap_deidrj", f, r_f, dtype,
+                                     1e-10, 1e-3)
+    vir = torch.zeros((6, rows), dtype=dtype, device=x.device)
+    f_t = sk.snap_deidrj_tally(par, x, mask, short, nshort, prd, r_y, vir)
+    errs["snap_deidrj_tally"] = snap_close(
+        f"{label} snap_deidrj_tally vs snap_deidrj", f_t, f, dtype, 1e-12,
+        1e-5)
+    zero = torch.zeros_like(r_v[:1])
+    sums = tally_sums(torch.cat([zero, vir]), valid)[1:]
+    r_sums = tally_sums(torch.cat([zero, r_v]), valid)[1:]
+    vrel = 1e-10 if dtype == torch.float64 else 1e-4
+    vir_gap = snap_close(f"{label} snap_deidrj_tally virial sums", sums,
+                         r_sums, torch.float64, vrel, 0)
+    del f, r_f, r_v, f_t, vir
+
+    fz = sk.zbl_pair(zpar, x, mask, short, nshort, prd)
+    (r_fz, r_tz), plain_zbl = event_ms(lambda: sk.zbl_pair_reference(
+        zpar, x, mask, short, nshort, prd, True))
+    errs["zbl_pair"] = snap_close(f"{label} zbl_pair", fz, r_fz, dtype,
+                                  1e-12, 1e-5)
+    fz_t, tz = sk.zbl_pair_tally(zpar, x, mask, short, nshort, prd)
+    errs["zbl_pair_tally"] = snap_close(
+        f"{label} zbl_pair_tally vs zbl_pair", fz_t, fz, dtype, 1e-12, 1e-5)
+    z_sums, rz_sums = tally_sums(tz, valid), tally_sums(r_tz, valid)
+    snap_close(f"{label} zbl_pair_tally sums", z_sums, rz_sums,
+               torch.float64, 1e-12 if dtype == torch.float64 else 1e-5, 0)
+    log(f"[tally] {label}: snap pe {pe:.17g} (twin {r_pe:.17g}, rel "
+        f"{pe_gap:.3e}); snap virial max abs apart {vir_gap:.3e}; zbl pe "
+        f"{z_sums[0].item():.17g} (twin {rz_sums[0].item():.17g})")
+    del fz, r_fz, r_tz, fz_t, tz
+    torch.cuda.empty_cache()
+
+    e = torch.zeros(rows, dtype=dtype, device=x.device)
+    vir = torch.zeros((6, rows), dtype=dtype, device=x.device)
+    calls = {
+        "snap_ui": lambda: sk.snap_ui(par, x, mask, short, nshort, prd),
+        "snap_yi": lambda: sk.snap_yi(par, table, mask, r_u),
+        "snap_yi_tally": lambda: sk.snap_yi_tally(par, table, mask, r_u, e),
+        "snap_deidrj": lambda: sk.snap_deidrj(par, x, mask, short, nshort,
+                                              prd, r_y),
+        "snap_deidrj_tally": lambda: sk.snap_deidrj_tally(
+            par, x, mask, short, nshort, prd, r_y, vir),
+        "zbl_pair": lambda: sk.zbl_pair(zpar, x, mask, short, nshort, prd),
+        "zbl_pair_tally": lambda: sk.zbl_pair_tally(zpar, x, mask, short,
+                                                    nshort, prd)}
+    timed = {name: queued_ms(fn) for name, fn in calls.items()}
+    dev = {name: t[0] for name, t in timed.items()}
+    plain = {"snap_ui": plain_ui, "snap_yi": plain_yi,
+             "snap_yi_tally": plain_yi, "snap_deidrj": plain_de,
+             "snap_deidrj_tally": plain_de, "zbl_pair": plain_zbl,
+             "zbl_pair_tally": plain_zbl}
+    key = str(dtype).split(".")[-1]
+    out = {}
+    for name in SNAP_KERNELS:
+        step = name.removesuffix("_tally")
+        work = peaks.kernel_work(step)
+        n = pairs["zbl" if step == "zbl_pair" else "snap"]
+        pair_ops, row_ops = work["pair_ops"], work["row_ops"]
+        nbytes = atoms * work["bytes_per_atom"][key]
+        if name != step:
+            pair_ops += {"snap_yi_tally": 0,
+                         "snap_deidrj_tally": SNAP_DEIDRJ_TALLY_PAIR_OPS,
+                         "zbl_pair_tally": ZBL_TALLY_PAIR_OPS}[name]
+            row_ops += SNAP_YI_TALLY_ROW_OPS if name == "snap_yi_tally" else 0
+            nbytes += atoms * SNAP_TALLY_PLANES[name] * x.element_size()
+        b = bound_of(n, pair_ops, nbytes, dtype, row_ops=atoms * row_ops)
+        log(f"[kernel] {label} {name}: grid {p.ncells} x cc {p.cell_cap} "
+            f"({rows} rows, {atoms} atoms), S {S}, {n} pairs within its "
+            f"cutoff, max abs err {errs[name]:.3e}, device {dev[name]:.4f} "
+            f"ms (queued; the host {timed[name][1]:.4f} ms a call), plain "
+            f"{plain[name]:.4f} ms (one call of the twin"
+            + (", shared with the step instance's" if name != step else "")
+            + f"), bound {b['bound_ms']:.4g} ms ({b['bound_by']}), "
+            f"{100 * b['bound_ms'] / dev[name]:.2f}% of it")
+        out[name] = {"max_abs_err": errs[name], "ms": dev[name],
+                     "device_ms": dev[name], "host_ms": timed[name][1],
+                     "plain_ms": plain[name], **b}
+    del x, short, nshort, r_u, r_y, e, vir
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_snap(dev, size: str = SNAP_SIZE) -> tuple[list, list]:
+    """Phase 19: the SNAP and ZBL kernels against their twins on the sorted
+    state of the benchmark's SNAP W deck (bench_port/configs/snap-w.in,
+    seeded coefficients) at `size` (128,000 atoms, the cell
+    snap-w-fp64.128k's), f32 and f64; then the deck's `run 100` at thermo
+    10 in float64, the cell's main path, with every SNAP, ZBL and
+    short-list launch counter zeroed just before it: one short list and
+    one ui a force pass, yi, deidrj and zbl_pair once a step, each tally
+    instance once a thermo row; drift, the slope-timed step rate and a
+    torch.profiler split. Returns (the kernel line's entries, the rank's
+    terms)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import rebin_kernels
+    from lammps_kokkos_port_tpu_torch.ops import snap_kernels as sk
+    from lammps_kokkos_port_tpu_torch.ops import tersoff_kernels as tk
+    from lammps_kokkos_port_tpu_torch.prof.snap import deck_sim
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sim = deck_sim(torch.float64, size, tmp, dev)
+    deck = f"snap-{size}"
+    log(f"[setup] {deck} f64 deck {time.perf_counter() - t0:.1f} s, "
+        f"{sim.state.nlocal} atoms, grid {sim.nl.params.ncells} x cc "
+        f"{sim.nl.params.cell_cap}, S {sim.nl.short_cap}")
+    at32 = snap_kernels_vs_plain(sim, torch.float32, f"{deck} f32")
+    at64 = snap_kernels_vs_plain(sim, torch.float64, f"{deck} f64")
+
+    # the main path: the deck's run, launches counted from zero
+    params0, cap0 = sim.nl.params, sim.nl.short_cap
+    for name in SNAP_KERNELS:
+        getattr(sk, name).launches = 0
+    tk.tersoff_short.launches = 0
+    t0 = time.perf_counter()
+    rows = sim.run(SNAP_STEPS, thermo_every=SNAP_THERMO)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    launches = {name: getattr(sk, name).launches for name in SNAP_KERNELS}
+    n_short = tk.tersoff_short.launches
+    log(f"[{deck}] run({SNAP_STEPS}): launches {launches}, tersoff_short "
+        f"{n_short}, nbuilds {sim.nl.nbuilds}, loop {loop:.3f} s incl. "
+        f"{len(rows)} thermo rows, grid {sim.nl.params.ncells} x cc "
+        f"{sim.nl.params.cell_cap}, S {sim.nl.short_cap}")
+    grown = sim.nl.params != params0 or sim.nl.short_cap != cap0
+    # the step passes once a step (an overflow retry re-runs a segment's
+    # steps), the tally instances once a thermo row, U and the short list
+    # before each force pass of either kind
+    steps = launches["snap_yi"]
+    if (not steps == launches["snap_deidrj"] == launches["zbl_pair"]
+            or steps < SNAP_STEPS or (steps != SNAP_STEPS and not grown)):
+        raise RuntimeError(f"SNAP/ZBL step kernels not launched once a "
+                           f"step: {launches} over {SNAP_STEPS} steps")
+    if not all(launches[k] == len(rows) for k in (
+            "snap_yi_tally", "snap_deidrj_tally", "zbl_pair_tally")):
+        raise RuntimeError(f"SNAP/ZBL tally kernels not launched once a "
+                           f"thermo row: {launches} over {len(rows)} rows")
+    if not launches["snap_ui"] == n_short == steps + len(rows):
+        raise RuntimeError(f"snap_ui / tersoff_short not launched once a "
+                           f"force pass: {launches}, tersoff_short "
+                           f"{n_short}")
+    check_run(sim, rows, deck, bound=SNAP_DRIFT_BOUND)
+    step = step_rate(sim, SNAP_THERMO, deck)
+    profile_segment(sim, SNAP_THERMO, step, deck,
+                    ("tersoff_short", "snap_ui", "snap_yi", "snap_deidrj",
+                     "zbl_pair", *rebin_kernels.KERNELS), {})
+    del sim
+    torch.cuda.empty_cache()
+    entries = [{"name": name, "route": "cuda", "source": SNAP_SOURCE,
+                "replaces": SNAP_REPLACES[name], "launches": launches[name],
+                "at": f"{deck} f64", **at64[name],
+                "at_f32": {k: at32[name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}}
+               for name in SNAP_KERNELS]
+    terms = [(name, deck, launches[name] / SNAP_STEPS, at64[name])
+             for name in SNAP_KERNELS]
+    return entries, terms
+
+
 def rank(kernels: list, decks: list) -> None:
     """The redesign queue's order, as two lines. First any kernel slower
     than its library call. `[rank]`: the decks' kernels, each by its
@@ -2556,6 +2934,7 @@ def main() -> int:
                                                   eam_kernels, eamdense,
                                                   half_kernels, pair_kernels,
                                                   rebin_kernels,
+                                                  snap_kernels,
                                                   tersoff_kernels)
     from lammps_kokkos_port_tpu_torch.ops.eamdense import embedding_fp
     from lammps_kokkos_port_tpu_torch.prof import (ablate_kernels,
@@ -2584,7 +2963,7 @@ def main() -> int:
                                   column_half_kernels.SOURCE,
                                   dynslice_kernels.SOURCE,
                                   zwin_kernels.SOURCE, tersoff_kernels.SOURCE,
-                                  rebin_kernels.SOURCE)
+                                  rebin_kernels.SOURCE, snap_kernels.SOURCE)
     log(f"[build] nvcc, {len(build_logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in build_logs.items():
@@ -2834,6 +3213,8 @@ def main() -> int:
     tersoff, tersoff_terms = phase_tersoff(dev)
     # 18. the re-bin kernels at the 1M grids and on the 1M Tersoff deck
     rebin, rebin_terms = phase_rebin(dev)
+    # 19. SNAP W: the kernels and the 128k deck's main path
+    snap, snap_terms = phase_snap(dev)
 
     kernels = [
         {"name": "lj_cell_force", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2857,7 +3238,7 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": LAST_SITES[name][0],
            "replaces": LAST_SITES[name][1], **entry}
           for name, entry in last.items()),
-        *tersoff, *rebin,
+        *tersoff, *rebin, *snap,
     ]
     rank(kernels, [
         ("lj_cell_force", "lj-32k", launches / 1000, main_cell),
@@ -2865,7 +3246,7 @@ def main() -> int:
         *((name, "eam-32k", eam_launches[name] / EAM_STEPS, eam_cells[name])
           for name in EAM_KERNELS),
         ("lj_cell_dense", "lj-1m-cell", cell_launches / DECK_STEPS,
-         main_dense), *tersoff_terms, *rebin_terms])
+         main_dense), *tersoff_terms, *rebin_terms, *snap_terms])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -319,6 +319,21 @@ def tersoff_short(cutsq, ncells, x, mask, prd, S, overflow, need):
     return short, nshort
 
 
+def short_lists(cutoff, state, cl, owner: str):
+    """(x, prd, short, nshort): the sorted layout's short lists within
+    `cutoff` (`tersoff_short` at the layout's `short_cap`; an overflow sets
+    the layout's flag and `short_need`, for the grow-retry), under the span
+    `pair.<owner>.short`. The short-list seam of every style that reads
+    one: Tersoff, SNAP, ZBL and their hybrid/overlay."""
+    prd = state.box.prd.to(state.dtype)
+    x = state.x.contiguous()
+    with trace.span(f"pair.{owner}.short"):
+        short, nshort = tersoff_short(cutoff ** 2, cl.params.ncells, x,
+                                      state.mask, prd, cl.short_cap,
+                                      cl.overflow, cl.short_need)
+    return x, prd, short, nshort
+
+
 def _force_launch(par, x, short, nshort, prd, tally: bool):
     _check_cuda(x, short, nshort, prd)
     if len(par) != NPAR:
@@ -390,15 +405,10 @@ def compute(style, state, cl, eflag: bool, vflag: bool):
     """(f, pe, virial) of the three-body style on a SortedCells state: the
     short list, then the force pass, or its tally instance on an
     energy/virial call (pe and virial None where not asked for)."""
-    p = cl.params
-    prd = state.box.prd.to(state.dtype)
-    x = state.x.contiguous()
     par = style.kernel_params()
     with trace.span("pair.tersoff"):
-        with trace.span("pair.tersoff.short"):
-            short, nshort = tersoff_short(style.max_cutoff() ** 2, p.ncells,
-                                          x, state.mask, prd, cl.short_cap,
-                                          cl.overflow, cl.short_need)
+        x, prd, short, nshort = short_lists(style.max_cutoff(), state, cl,
+                                            "tersoff")
         with trace.span("pair.tersoff.force"):
             if not eflag and not vflag:
                 return tersoff_force(par, x, short, nshort, prd), None, None

@@ -14,9 +14,10 @@ Ported commands:
     atom_modify, lattice (style and scale), region (block, units/side),
     create_box, create_atoms (box, region, single), mass, velocity create
     (loop all/geom, dist uniform/gaussian);
-  - styles: pair_style lj/cut, eam and tersoff (one element),
-    pair_coeff, neighbor (bin),
-    neigh_modify (every, delay, check), fix nve (group all), unfix,
+  - styles: pair_style lj/cut, eam, tersoff and snap (one element), zbl
+    (one type), hybrid/overlay of zbl and snap, pair_coeff, neighbor
+    (bin), neigh_modify (every, delay, check, once no), fix nve (group
+    all), unfix,
     timestep;
   - output and run: thermo, thermo_style one/custom, thermo_modify norm,
     reset_timestep, timer (off, loop, normal, full), run;
@@ -631,6 +632,9 @@ class LammpsScript:
 
     # -- style commands ------------------------------------------------------
 
+    # the sub-styles hybrid/overlay takes, and the count of their numbers
+    _OVERLAY_SUBSTYLES = {"zbl": 2, "snap": 0}
+
     def cmd_pair_style(self, a):
         if a[0].startswith("tersoff/"):
             raise NotImplementedError(
@@ -639,10 +643,41 @@ class LammpsScript:
             raise NotImplementedError(
                 f"pair_style tersoff {' '.join(a[1:])}: its keywords "
                 "(shift) are not ported")
-        if a[0] not in ("lj/cut", "eam", "tersoff"):
+        if a[0] == "snap" and len(a) > 1:
+            raise NotImplementedError(
+                f"pair_style snap {' '.join(a[1:])}: it takes no arguments")
+        if a[0] == "zbl" and len(a) != 3:
+            raise ScriptError("pair_style zbl takes an inner and an outer "
+                              "cutoff")
+        if a[0] == "hybrid/overlay":
+            self._overlay_substyles(a[1:])
+        elif a[0] not in ("lj/cut", "eam", "tersoff", "snap", "zbl"):
             raise _not_ported(f"pair_style {a[0]}")
         self._sync_from_sim()
         self.pair_style_words = a
+
+    def _overlay_substyles(self, words):
+        """[(name, args)] of `pair_style hybrid/overlay <sub-styles>`; a
+        sub-style other than zbl and snap, or one named twice, raises."""
+        subs, pos = [], 0
+        while pos < len(words):
+            name = words[pos]
+            if name not in self._OVERLAY_SUBSTYLES:
+                raise NotImplementedError(
+                    f"pair_style hybrid/overlay sub-style {name}: only "
+                    f"{' and '.join(self._OVERLAY_SUBSTYLES)} are ported")
+            if any(n == name for n, _ in subs):
+                raise NotImplementedError(
+                    f"pair_style hybrid/overlay names {name} twice")
+            n = self._OVERLAY_SUBSTYLES[name]
+            args = words[pos + 1:pos + 1 + n]
+            if len(args) != n:
+                raise ScriptError(f"hybrid/overlay {name} takes {n} numbers")
+            subs.append((name, args))
+            pos += 1 + n
+        if not subs:
+            raise ScriptError("pair_style hybrid/overlay needs sub-styles")
+        return subs
 
     def cmd_pair_coeff(self, a):
         self._sync_from_sim()
@@ -670,6 +705,8 @@ class LammpsScript:
                 self.neigh_delay = int(v)
             elif k == "check":
                 self.neigh_check = v == "yes"
+            elif k == "once" and v == "no":
+                pass  # LAMMPS's default: lists are rebuilt as decided
             else:
                 raise _not_ported(f"neigh_modify keyword {k}")
 
@@ -921,14 +958,16 @@ class LammpsScript:
             pair = make_lj_cut(self.ntypes, self._pair_coeff_dict(),
                                float(args[0]), dtype=self.dtype,
                                device=self.device)
-        elif name == "tersoff":
-            from .models.pair_tersoff import make_tersoff
+        elif name == "hybrid/overlay":
+            from .models.forcefield import HybridOverlay
 
-            c = self.pair_coeffs[-1] if self.pair_coeffs else []
-            if c[:2] != ["*", "*"] or len(c) < 4:
-                raise ScriptError("pair_coeff for tersoff: * * <file> "
-                                  "<element per type>")
-            pair = make_tersoff(self.ntypes, c[2], c[3:])
+            pair = HybridOverlay(tuple(
+                self._build_substyle(sub, sargs, [
+                    c[:2] + c[3:] for c in self.pair_coeffs
+                    if c[2:3] == [sub]])
+                for sub, sargs in self._overlay_substyles(args)))
+        elif name in ("tersoff", "snap", "zbl"):
+            pair = self._build_substyle(name, args, self.pair_coeffs)
         else:  # eam (cmd_pair_style admits nothing else)
             from .models.pair_eam import make_eam_funcfl
 
@@ -936,6 +975,34 @@ class LammpsScript:
             pair = make_eam_funcfl(self.ntypes, files, dtype=self.dtype,
                                    device=self.device)
         return ForceField(pair=pair)
+
+    def _build_substyle(self, name, args, coeffs):
+        """A tersoff, snap or zbl style from its pair_style arguments and
+        its pair_coeff lines (without a hybrid's sub-style word)."""
+        if not coeffs:
+            raise ScriptError(f"pair style {name} has no pair_coeff")
+        c = coeffs[-1]
+        if name == "zbl":
+            from .models.pair_zbl import make_zbl
+
+            return make_zbl(self.ntypes, float(args[0]), float(args[1]),
+                            c[2:], get_units(self.units_name))
+        if c[:2] != ["*", "*"]:
+            raise ScriptError(f"pair_coeff for {name}: * * <file(s)> "
+                              "<element per type>")
+        if name == "snap":
+            from .models.pair_snap import make_snap
+
+            if len(c) < 5:
+                raise ScriptError("pair_coeff for snap: * * <coeff file> "
+                                  "<param file> <element per type>")
+            return make_snap(self.ntypes, c[2], c[3], c[4:])
+        from .models.pair_tersoff import make_tersoff
+
+        if len(c) < 4:
+            raise ScriptError("pair_coeff for tersoff: * * <file> "
+                              "<element per type>")
+        return make_tersoff(self.ntypes, c[2], c[3:])
 
     def _pair_coeff_dict(self):
         coeffs = {}

@@ -5,6 +5,7 @@ The same seeded inputs go through the JAX package and the port
 (lammps_kokkos_port_tpu_torch); fp64 results must agree bit for bit.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -21,11 +22,15 @@ from lammps_kokkos_port_tpu.presets import lj_melt_state as jax_lj_melt_state
 from lammps_kokkos_port_tpu_torch import interop
 from lammps_kokkos_port_tpu_torch.core.box import Box
 from lammps_kokkos_port_tpu_torch.io.eam_reader import write_sutton_chen_funcfl
+from lammps_kokkos_port_tpu_torch.models.forcefield import HybridOverlay
 from lammps_kokkos_port_tpu_torch.models.pair_eam import make_eam_funcfl
 from lammps_kokkos_port_tpu_torch.models.pair_lj import make_lj_cut
+from lammps_kokkos_port_tpu_torch.models.pair_snap import make_snap
 from lammps_kokkos_port_tpu_torch.models.pair_tersoff import make_tersoff
+from lammps_kokkos_port_tpu_torch.models.pair_zbl import make_zbl
 from lammps_kokkos_port_tpu_torch.presets import lj_melt_state
 from lammps_kokkos_port_tpu_torch.runner import Simulation
+from lammps_kokkos_port_tpu_torch.utils.units import get_units
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -126,6 +131,12 @@ LIST_MODES = {
     ("tersoff", "auto"): "sorted", ("tersoff", "sorted"): "sorted",
     ("tersoff", "cell"): "cell mode needs a pair_terms style or a "
                          "single-element EAM style, not PairTersoff",
+    ("zbl", "auto"): "sorted", ("zbl", "sorted"): "sorted",
+    ("zbl", "cell"): "cell mode needs a pair_terms style or a "
+                     "single-element EAM style, not PairZBL",
+    ("zbl+snap", "auto"): "sorted", ("zbl+snap", "sorted"): "sorted",
+    ("zbl+snap", "cell"): "cell mode needs a pair_terms style or a "
+                          "single-element EAM style, not HybridOverlay",
 }
 
 
@@ -139,6 +150,18 @@ def _style(name, tmp_path):
         write_sutton_chen_funcfl(pot)
         nt = 2 if "2" in name else 1
         return make_eam_funcfl(nt, {t: pot for t in range(1, nt + 1)})
+    if name.startswith("zbl"):
+        zbl = make_zbl(1, 4.0, 4.8, ["74", "74"], get_units("metal"))
+        if name == "zbl":
+            return zbl
+        from bench_port import decks
+
+        conf = json.loads((REPO / "bench_port/configs/snap-w-fp64.json")
+                          .read_text())
+        decks.potential(conf, decks.CONFIGS, tmp_path)
+        snap = make_snap(1, str(tmp_path / "W_2940_2017_2.snapcoeff"),
+                         str(tmp_path / "W_2940_2017_2.snapparam"), ["W"])
+        return HybridOverlay((zbl, snap))
     return make_tersoff(1, str(REPO / "bench_port/configs/Si.tersoff"),
                         ["Si"])
 
