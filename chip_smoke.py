@@ -43,10 +43,13 @@ checks them on the card:
      kernel launched once per force step (one fused rho+fp launch, one
      force launch) and each tally instance once per thermo row, nbuilds
      > 1, energy drift, the slope-timed step rate, and a torch.profiler
-     split of one segment, in which embedding_fp must not be called; the
-     same deck through the earlier chain (rho sweep,
-     embedding_fp in eager PyTorch, force sweep) for device ops, device
-     time and host time per step before and after;
+     split of one segment (its CUDA graph replayed), whose records of each
+     kernel must equal the launches its wrapper counts over that segment
+     (under replay the counts are added per replay), the step rate and
+     split of the steps in the eager loop, in which embedding_fp must not
+     be called; the same deck through the earlier chain (rho sweep,
+     embedding_fp in eager PyTorch, force sweep) in the eager loop for
+     device ops, device time and host time per step before and after;
   9. the input-deck slice: bench/in.lj with -var x 4 -var y 2 -var z 4
      (1,024,000 atoms) through `script.LammpsScript(list_mode="cell")`,
      f32, the deck's own `run 100`: the cell kernel (K6's port) launched
@@ -761,15 +764,17 @@ def check_run(sim, rows, label: str, bound: float = 0.02) -> None:
                            f">= {bound}")
 
 
-def step_rate(sim, k1: int, label: str, reps: int = 5) -> float:
+def step_rate(sim, k1: int, label: str, reps: int = 5,
+              runner=None) -> float:
     """Steady-state ms/step from two segment lengths (k1, 3*k1), so the
     fixed per-segment cost cancels (as bench.py does). The two lengths run
     in turns, `reps` times each, from the same state; the slope is taken
     between their median times (host-clock times of a host-bound loop
-    spread more than device times). Returns seconds per step."""
+    spread more than device times). `runner`: the sim's segment runner
+    where not given. Returns seconds per step."""
     import torch
 
-    runner = sim._get_segment_runner()
+    runner = runner or sim._get_segment_runner()
 
     def timed(k):
         torch.cuda.synchronize()
@@ -1065,14 +1070,15 @@ def segment_trace(run, labels) -> tuple:
 
 
 def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
-                    kernels, labels) -> dict:
+                    kernels, labels, runner=None) -> dict:
     """torch.profiler over one segment of `nsteps` after a warm-up: device
     time per step of each kernel in `kernels` (by kernel name), of each
     profiler range in `labels` ({range: [(module, function), ...]}, the
     named functions of the step wrapped in that range) and the rest; the
     device idle share against the unprofiled ms/step. The ranges hold only
     PyTorch ops: the trace does not attribute the kernels launched through
-    ctypes to an enclosing range. Every trace runs the same segment (the
+    ctypes to an enclosing range, and a replayed CUDA graph runs no Python
+    (give such ranges the runner's `eager` loop as `runner`). Every trace runs the same segment (the
     runner returns a new state and leaves sim's as it is), so its device
     ops are the same in each: a trace is kept when a second one holds as
     many device ops and none holds more, or when three agree (one trace
@@ -1085,7 +1091,7 @@ def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
 
     from lammps_kokkos_port_tpu_torch.prof.redesign import TRACE_ATTEMPTS
 
-    runner = sim._get_segment_runner()
+    runner = runner or sim._get_segment_runner()
     runner(sim.state, sim.nl, nsteps)  # warm-up
     traces = []
     while True:
@@ -1109,6 +1115,8 @@ def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
     split = {name: sum(e.time_range.elapsed_us() for e in ops
                        if f"{name}_kernel" in e.name)
              for name in kernels}
+    records = {name: sum(f"{name}_kernel" in e.name for e in ops)
+               for name in kernels}
     for lab in labels:
         split[lab] = sum(e.device_time_total for e in events
                          if e.device_type == DeviceType.CPU
@@ -1127,8 +1135,24 @@ def profile_segment(sim, nsteps: int, ms_per_step: float, label: str,
         f"{100 * (1 - busy / (ms_per_step * 1e3)):.1f}%; traces taken "
         f"again {len(traces) - 2} (device ops per trace {counts})")
     return {"per_step": per, "busy_ms": busy,
-            "ops_per_step": len(ops) / nsteps,
+            "ops_per_step": len(ops) / nsteps, "records": records,
             "traces_taken_again": len(traces) - 2}
+
+
+def segment_launches(sim, nsteps: int, kernels) -> dict:
+    """The `.launches` each wrapper of `kernels` (ops/eam_kernels,
+    ops/rebin_kernels) counts over one segment of `nsteps` of the sim's
+    runner from the sim's state (the segment profile_segment traces)."""
+    import torch
+
+    from lammps_kokkos_port_tpu_torch.ops import eam_kernels, rebin_kernels
+
+    wrappers = {name: getattr(eam_kernels, name, None)
+                or getattr(rebin_kernels, name) for name in kernels}
+    before = {name: w.launches for name, w in wrappers.items()}
+    sim._get_segment_runner()(sim.state, sim.nl, nsteps)
+    torch.cuda.synchronize()
+    return {name: w.launches - before[name] for name, w in wrappers.items()}
 
 
 @contextlib.contextmanager
@@ -3125,27 +3149,49 @@ def main() -> int:
         glue_calls.append(1)
         return embedding_fp(*args, **kwargs)
 
+    # the step's own Python runs only at a CUDA graph's capture: the
+    # before-and-after of the fused chain runs the steps in a Python loop
+    # (the runner's `eager`), so that the replaced functions are called
+    eager = eam._get_segment_runner().eager
     # the fp glue is the rho sweep's epilogue: embedding_fp is not called
     with replaced([(eam_kernels, "embedding_fp", no_glue),
                    (eamdense, "embedding_fp", no_glue)]):
-        fused = profile_segment(eam, 50, eam_step, "eam-32k",
-                                eam_kernels_pair, {})
+        replayed = profile_segment(eam, 50, eam_step, "eam-32k",
+                                   eam_kernels_pair, {})
+        replay_launches = segment_launches(eam, 50, eam_kernels_pair)
+        eager_step = step_rate(eam, 50, "eam-32k eager loop", runner=eager)
+        fused = profile_segment(eam, 50, eager_step, "eam-32k eager loop",
+                                eam_kernels_pair, {}, runner=eager)
     if glue_calls:
         raise RuntimeError(f"eam-32k: embedding_fp called {len(glue_calls)}"
                            " times in the profiled segment on the card")
+    log(f"[eam-32k graphs] {eam_step * 1e3:.4f} ms per step replayed, "
+        f"{eager_step * 1e3:.4f} in the eager loop; kernel records in the "
+        f"replayed segment's trace {replayed['records']}, the wrappers' "
+        f"launches counted over that segment {replay_launches}")
+    # under replay a wrapper's `.launches` is bookkeeping (integrate/graphs
+    # adds what the capture counted): it has to match what ran on the card
+    if (replayed["records"] != replay_launches
+            or replay_launches["eam_cell_rho"] != 50):
+        raise RuntimeError(
+            f"eam-32k: kernel records in the replayed segment "
+            f"{replayed['records']} differ from the counted launches "
+            f"{replay_launches} over its 50 steps")
     # the same deck through the earlier chain, for the before-and-after
     with replaced([(eam_kernels, "compute_force_sorted",
                     unfused_force_sorted)]):
-        unfused_step = step_rate(eam, 50, "eam-32k unfused chain")
+        unfused_step = step_rate(eam, 50, "eam-32k unfused chain",
+                                 runner=eager)
         unfused = profile_segment(
             eam, 50, unfused_step, "eam-32k unfused chain", eam_kernels_pair,
-            {"fp glue": [(eamdense, "embedding_fp")]})
+            {"fp glue": [(eamdense, "embedding_fp")]}, runner=eager)
     log(f"[eam-32k device ops per step] unfused chain (rho sweep, "
         f"embedding_fp, force sweep) {unfused['ops_per_step']:.1f} -> fused "
         f"{fused['ops_per_step']:.1f}; device busy "
         f"{unfused['busy_ms']:.4f} -> {fused['busy_ms']:.4f} ms per step; "
-        f"host {unfused_step * 1e3:.4f} -> {eam_step * 1e3:.4f} ms per step "
-        f"(embedding_fp calls in the fused segment: {len(glue_calls)})")
+        f"host {unfused_step * 1e3:.4f} -> {eager_step * 1e3:.4f} ms per "
+        f"step in the eager loop (embedding_fp calls in the fused segment: "
+        f"{len(glue_calls)})")
     del sim32, sim1m, gold, eam
 
     with tempfile.TemporaryDirectory() as tmp:

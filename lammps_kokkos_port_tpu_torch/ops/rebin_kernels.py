@@ -28,10 +28,10 @@ flag (`rebuild_state`, whose rebuilds the host schedules) they always run,
 into fresh arrays, and no commit follows. The host never reads the flag.
 
 In place: `rebuild_if` overwrites the state's type, tag, image, mask, q,
-molecule (and its fresh x and v) and the list's xhold, ago, nbuilds and
+molecule (and its x and v) and the list's xhold, ago, nbuilds and
 overflow. The generic segment runner works on its own copies of those
-(ops/sortedforce.segment_copies), so the caller's state and list, which a
-grow-retry keeps as its snapshot, stay as they were.
+(its carry: integrate/verlet, integrate/graphs), so the caller's state and
+list, which a grow-retry keeps as its snapshot, stay as they were.
 
 These functions take CUDA tensors only (ops/sortedforce dispatches: CPU
 tensors go to the plain versions there). The per-kernel wrappers launch on

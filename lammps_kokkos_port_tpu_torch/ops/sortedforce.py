@@ -347,8 +347,9 @@ def rebuild_if(state: State, cl: SortedCells, rebuild: torch.Tensor):
     and do the re-bin only where it is set, IN PLACE: the state's x, v,
     type, tag, image, mask, q, molecule and the list's xhold, ago, nbuilds
     and overflow are overwritten, and the same state and list are
-    returned. The step's x and v are fresh from the integrator; the rest
-    are the segment's own copies (`segment_copies`)."""
+    returned. They are the segment's own: the generic runner's carry
+    (integrate/verlet, integrate/graphs), or `segment_copies` and the
+    integrator's fresh x and v in `make_step`'s step run in a loop."""
     trace.count("neigh.rebin_passes")
     if state.device.type == "cpu":
         return rebuild_if_reference(state, cl, rebuild)
@@ -359,11 +360,11 @@ def segment_copies(state: State, cl: SortedCells):
     """(state, cl) with their own copies of what `rebuild_if` updates in
     place on the card: the rows' type, tag, image, mask, q and molecule,
     the list's xhold and overflow flag, and `ago`/`nbuilds` as int64
-    device tensors. The generic segment runner takes them at its start, so
-    the state and list it was given, which the grow-retry keeps as its
-    snapshot (runner._run_segment_retry) and a thermo row may hold, stay as
-    they were. `short_need` stays shared: the host reads it after a
-    short-list overflow."""
+    device tensors. `make_step`'s step run in a loop (the tests'
+    reference, prof/rebin) takes them at its start, so that the state and
+    list it was given stay as they were, as the segment runners leave
+    theirs (their carry is their own: integrate/graphs). `short_need`
+    stays shared: the host reads it after a short-list overflow."""
     dev = state.device
 
     def own(a):

@@ -6,8 +6,9 @@ check=False)`, f32; 32,000 atoms at cells 20) it prints, under the
 script's labels:
 
   step         the sorted step (`sim._get_segment_runner()`), slope over
-               100 and 300 steps of an eager loop (a segment reads the
-               host, so it cannot be captured in a CUDA graph);
+               segments of 100 and 300 steps (on the card each step a
+               replay of its CUDA graph, integrate/graphs; a segment's one
+               host read, at its end, cancels in the slope);
   V0 half      the port's lj kernel (ops/pair_kernels.lj_cell_force, the
                counterpart of K1 column_half_force_pallas);
   V1 full27    K7 (ops/column_kernels.lj_column_force);

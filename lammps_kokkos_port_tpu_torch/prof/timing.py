@@ -12,12 +12,11 @@ from __future__ import annotations
 
 import math
 import subprocess
-import sys
 import time
 
 import torch
 
-PACKAGE = __package__.rsplit(".", 1)[0]
+from ..integrate.graphs import counted_kernels
 
 
 # the scripts' coupling of one iteration to the next: carry + EPS * forces
@@ -48,19 +47,6 @@ def _device_of(carry) -> torch.device:
     if isinstance(carry, torch.Tensor):
         return carry.device
     return _device_of(carry[0])
-
-
-def counted_kernels() -> list:
-    """Every kernel wrapper with a `.launches` counter in the port's loaded
-    modules (a wrapper a body calls is loaded), each once."""
-    fns = {}
-    for name, mod in list(sys.modules.items()):
-        if name.startswith(PACKAGE + "."):
-            for f in vars(mod).values():
-                if callable(f) and isinstance(getattr(f, "launches", None),
-                                              int):
-                    fns[id(f)] = f
-    return list(fns.values())
 
 
 def slope_ms(body, carry, k1: int = 20, k2: int = 60, reps: int = 1) -> float:

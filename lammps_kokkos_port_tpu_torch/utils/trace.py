@@ -20,6 +20,11 @@ falls under the spans open at that moment.
 The spans are host times: on the card a launch returns before the device
 has run it, so a span holds the host's time in it, and the device waits
 show in the spans that read the device (`segment.read`, `output.read`).
+On the card a segment's steps replay CUDA graphs (integrate/graphs), which
+run no Python: the spans inside a step are recorded at a graph's capture
+only, and its counters are added at each replay (`set_aside`). The step
+loop counts `segment.graph_steps` (the steps of segments run from graphs)
+and `segment.graph_captures`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ _stack: list = []        # the open spans, innermost last
 _aggs: dict = {}         # name -> [count, total_ns, self_ns]
 _counters: dict = {}
 _records: list = []      # (id, name, start_ns, end_ns, parent_id, run_id)
+_aside: list = []        # the open `set_aside` blocks' counts, innermost last
 _dropped = 0
 _next_id = 0
 
@@ -125,9 +131,26 @@ def spanned(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` while tracing is on."""
-    if ON:
+    """Add `n` to the counter `name` while tracing is on; inside a
+    `set_aside` block, to that block's counts instead, on or off."""
+    if _aside:
+        _aside[-1][name] = _aside[-1].get(name, 0) + n
+    elif ON:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def set_aside():
+    """A block whose counts, whether tracing is on or not, go to the dict
+    it yields and not to the counters: the capture of a CUDA graph
+    (integrate/graphs), which runs no step, records there what each of its
+    replays then adds with `count`."""
+    got: dict = {}
+    _aside.append(got)
+    try:
+        yield got
+    finally:
+        _aside.pop()
 
 
 def snapshot() -> dict:

@@ -236,8 +236,10 @@ def test_generic_segment_matches_plain(cuda, tmp_path, kind, dtype,
     assert rk.sorted_rebin_move.launches == n0 + 100
     with monkeypatch.context() as m:
         _plain(m)
+        # the steps in a loop: the plain versions read the host, which a
+        # CUDA graph's capture cannot
         runner = make_step_segment(sims[1].integrator, sims[1].force_fn)
-        ref, rcl = runner(sims[1].state, sims[1].nl, 100)
+        ref, rcl = runner.eager(sims[1].state, sims[1].nl, 100)
     assert int(rcl.nbuilds) > 2
     _assert_states_equal(out, ref)
     _assert_lists_equal(cl, rcl)
@@ -257,6 +259,7 @@ def test_fused_segment_matches_plain(cuda, dtype, monkeypatch):
     assert rk.sorted_rebin_bin.launches >= n0 + 5
     with monkeypatch.context() as m:
         _plain(m)
+        sims[1]._segment_runner = sims[1]._get_segment_runner().eager
         sims[1].run(100, thermo_every=50)
     _assert_states_equal(sims[0].state, sims[1].state)
     assert sims[0].nl.nbuilds == sims[1].nl.nbuilds == 6
@@ -274,6 +277,7 @@ def test_grow_retry_replays_from_an_intact_snapshot(cuda, tmp_path, dtype,
     grew, fired = [], {}
     for i, sim in enumerate(sims):
         real = sim._get_segment_runner()
+        real = real if i == 0 else real.eager  # the plain side's loop
         grow = sim._grow_params
 
         def overflowing(state, nl, nsteps, real=real, i=i):
